@@ -8,16 +8,23 @@ Run from the repository root on a machine with an H100:
 Phases, one JSON line each:
 
   env           torch/CUDA versions and the card's name and power limit
-  build         compiles every CUDA kernel of the port from ``src/repro_torch/csrc``
+  build         compiles every CUDA source of the port from ``src/repro_torch/csrc``,
+                one nvcc each, all at once
   server_apply  the fused server-step kernel against its plain PyTorch version at
                 photon-75m's flat size (Np = 74,104,832, C = 4) for FedAvg,
-                FedMom and FedAdam, with and without DP noise: max errors,
-                run-to-run bitwise norms, kernel / plain / bound times
+                FedMom and FedAdam, with and without DP noise, and FedAvg at
+                C = 40 (two chunks of clients): max errors, run-to-run bitwise
+                norms, kernel / plain / bound times
+  topk_mask_ef, sr_bf16, int8_quant, int8_dequant
+                each uplink codec kernel at Np = 74,104,832, C = 4, bitwise
+                against its plain version: kernel / plain / bound times, GB/s;
+                the top-k phase also times the threshold selection
   check         a reduced photon round on the card agrees with the same round on
-                the CPU (float32 compute)
+                the CPU (float32 compute), with the float32 and the top-k uplink
   train         ``repro_torch.launch.train --arch photon-75m --fused-server``
-                for two rounds at full width on the card; the kernel launch
-                counts are zeroed just before and read just after
+                for two rounds at full width on the card, with ``--uplink``
+                float32, topk, bf16 and int8; the kernel launch counts are
+                zeroed just before each and read just after
   kernels       one line {"kernels": [...]} with every kernel's numbers
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -29,7 +36,6 @@ import dataclasses
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -41,6 +47,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 NP_PHOTON_75M = 74_104_832  # photon-75m's 74,100,992 params padded to 8192-blocks
 COHORT = 4
+WIDE_COHORT = 40  # more clients than one server_apply launch holds (32)
+TOPK_FRACTION = 0.05  # the launcher's --topk-fraction default
+#: (kernel, the --uplink that runs it, line of the TPU kernel, why no library call)
+CODEC_KERNELS = (
+    ("topk_mask_ef", "topk", 236,
+     "no single PyTorch call computes both the masked payload and the residual"),
+    ("sr_bf16", "bf16", 271, "PyTorch has no stochastic-rounding cast"),
+    ("int8_quant", "int8", 303,
+     "no single PyTorch call quantizes with a per-(client, leaf) scale table"),
+    ("int8_dequant", "int8", 330,
+     "no single PyTorch call dequantizes with a per-(client, leaf) scale table"),
+)
 
 
 def emit(phase: str, **fields) -> None:
@@ -56,43 +74,45 @@ def gpu_name_and_power() -> str:
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median of per-call CUDA-event timings after ``warmup`` calls."""
+    """Device ms per call: ``reps`` calls issued back to back between one
+    pair of CUDA events, after ``warmup`` calls. The host queues each call
+    while the previous one runs, as in a round, so the wrapper's own host
+    time is hidden unless it waits for the card."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def phase_build() -> dict:
     from repro_torch.kernels.fedcore import kernel as K
 
     t0 = time.perf_counter()
-    path, log = K.build()
+    built = K.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
-    emit("build", kernel="server_apply", library=os.path.relpath(path, ROOT),
-         seconds=seconds, ptxas=ptxas)
+    for source, (path, log) in built.items():
+        ptxas = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
+        emit("build", source=source, library=os.path.relpath(path, ROOT), ptxas=ptxas)
+    emit("build", seconds=seconds, sources=len(built))
     return {"seconds": seconds}
 
 
 def _server_apply_case(opt: str, with_noise: bool, gen, dev: str = "cuda",
-                       Np: int = NP_PHOTON_75M) -> dict:
+                       Np: int = NP_PHOTON_75M, C: int = COHORT) -> dict:
     import torch
     from repro_torch.kernels.fedcore import kernel as K
 
-    C = COHORT
     deltas = torch.randn((C, Np), generator=gen, device=dev) * 1e-2
-    w = torch.tensor([1.0, 2.0, 0.0, 0.5], device=dev)  # one zero-weight client
+    w = torch.tensor([1.0, 2.0, 0.0, 0.5] * (C // 4), device=dev)  # zero-weight clients
     wn = w / w.sum()
     params = torch.randn(Np, generator=gen, device=dev) * 0.02
     # optimizer lanes as one earlier outer step with pseudo-gradient g0 left them
@@ -163,7 +183,97 @@ def phase_server_apply() -> dict:
             emit("server_apply", **r)
             results[(opt, with_noise)] = r
             torch.cuda.empty_cache()
+    # a cohort wider than one launch's 32 register accumulators: two chunks
+    r = _server_apply_case("fedavg", False, gen, C=WIDE_COHORT)
+    emit("server_apply", **r)
+    results[("fedavg", False, WIDE_COHORT)] = r
+    torch.cuda.empty_cache()
     return results
+
+
+def _bits(t):
+    import torch
+
+    return t.view({4: torch.int32, 2: torch.int16, 1: torch.int8}[t.element_size()])
+
+
+def _codec_case(name: str, kernel, plain, args, nbytes: int, extra=None) -> dict:
+    """Kernel against plain, bitwise, then both timed at the given inputs."""
+    import torch
+
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    got, want = (got if isinstance(got, tuple) else (got,)), \
+        (want if isinstance(want, tuple) else (want,))
+    bitwise = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+    max_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    assert bitwise, (name, "kernel differs from its plain version", max_err)
+    del got, want
+    kernel_ms = time_ms(lambda: kernel(*args), reps=20, warmup=3)
+    plain_ms = time_ms(lambda: plain(*args), reps=5)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    r = {"C": COHORT, "Np": NP_PHOTON_75M, "bitwise": bitwise, "max_abs_err": max_err,
+         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": bound_ms,
+         "bound_by": "bytes", "kernel_GBps": nbytes / (kernel_ms * 1e-3) / 1e9,
+         **(extra or {})}
+    emit(name, **r)
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_codecs() -> dict:
+    """The four uplink codec kernels at photon-75m's packed cohort buffer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import int8_scale
+    from repro_torch.kernels.fedcore import FusedTopKCodec, kernel as K
+    from repro_torch.kernels.fedcore.ops import BLOCK, FlatSpec
+
+    C, Np = COHORT, NP_PHOTON_75M
+    shapes = photon_leaf_shapes(get_config("photon-75m"))
+    n = sum(math.prod(sh) for sh in shapes)
+    spec = FlatSpec(shapes=tuple(shapes), n=n, n_pad=-(-n // BLOCK) * BLOCK)
+    assert spec.n_pad == Np, (spec.n_pad, Np)
+    offsets = spec.offsets + (n,)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.zeros((C, Np), device="cuda")
+    x[:, :n] = torch.randn((C, n), generator=gen, device="cuda") * 1e-3
+    out = {}
+
+    codec = FusedTopKCodec(k_fraction=TOPK_FRACTION)
+    thresh = codec.threshold(x, n)
+    select_ms = time_ms(lambda: codec.threshold(x, n), reps=5)
+    out["topk_mask_ef"] = _codec_case(
+        "topk_mask_ef", K.topk_mask_ef, K.topk_mask_ef_plain, (x, thresh), 12 * C * Np + 4 * C,
+        {"threshold_select_ms": select_ms, "k": max(1, int(n * TOPK_FRACTION))})
+    del thresh
+
+    noise = torch.randint(0, 1 << 16, (C, Np), generator=gen, device="cuda", dtype=torch.int32)
+    out["sr_bf16"] = _codec_case("sr_bf16", K.sr_bf16, K.sr_bf16_plain, (x, noise), 10 * C * Np)
+    del noise
+
+    scales = torch.stack([int8_scale(x[:, a:b], dim=1) for a, b in zip(offsets, offsets[1:])],
+                         dim=1).contiguous()
+    out["int8_quant"] = _codec_case("int8_quant", K.int8_quant, K.int8_quant_plain,
+                                    (x, scales, offsets), 5 * C * Np,
+                                    {"leaves": len(shapes)})
+    q = K.int8_quant(x, scales, offsets)
+    del x
+    out["int8_dequant"] = _codec_case("int8_dequant", K.int8_dequant, K.int8_dequant_plain,
+                                      (q, scales, offsets), 5 * C * Np,
+                                      {"leaves": len(shapes)})
+    return out
+
+
+def photon_leaf_shapes(cfg):
+    """photon's parameter shapes in flatten order, from an abstract init."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    params = build_model(cfg).init(0, device="meta")
+    return [tuple(x.shape) for x in tree_leaves(params)]
 
 
 def phase_check() -> None:
@@ -173,53 +283,74 @@ def phase_check() -> None:
     from repro_torch.launch import train as T
 
     cfg = dataclasses.replace(get_config("photon-75m").reduced(), compute_dtype="float32")
-    rows = {}
-    for dev in ("cpu", "cuda"):
-        args = T.parse_args(["--reduced", "--rounds", "1", "--local-steps", "2",
-                             "--clients", "2", "--population", "4", "--seq-len", "64",
-                             "--fused-server", "--device", dev])
-        rows[dev] = T.run(args, cfg=cfg)["history"][0]
-    keys = ("train_loss", "pseudo_grad_norm", "global_model_norm", "val_ppl")
-    rel = {k: abs(rows["cuda"][k] - rows["cpu"][k]) / abs(rows["cpu"][k]) for k in keys}
-    emit("check", cuda={k: rows["cuda"][k] for k in keys},
-         cpu={k: rows["cpu"][k] for k in keys}, rel_err=rel)
-    assert all(math.isfinite(rows["cuda"][k]) for k in keys), rows["cuda"]
-    assert max(rel.values()) <= 1e-3, rel
+    for uplink in ("float32", "topk"):
+        rows = {}
+        for dev in ("cpu", "cuda"):
+            args = T.parse_args(["--reduced", "--rounds", "1", "--local-steps", "2",
+                                 "--clients", "2", "--population", "4", "--seq-len", "64",
+                                 "--fused-server", "--uplink", uplink, "--device", dev])
+            rows[dev] = T.run(args, cfg=cfg)["history"][0]
+        keys = ("train_loss", "pseudo_grad_norm", "global_model_norm", "val_ppl")
+        keys += ("uplink_residual_norm",) if uplink == "topk" else ()
+        rel = {k: abs(rows["cuda"][k] - rows["cpu"][k]) / abs(rows["cpu"][k]) for k in keys}
+        emit("check", uplink=uplink, cuda={k: rows["cuda"][k] for k in keys},
+             cpu={k: rows["cpu"][k] for k in keys}, rel_err=rel)
+        assert all(math.isfinite(rows["cuda"][k]) for k in keys), rows["cuda"]
+        assert max(rel.values()) <= 1e-3, (uplink, rel)
 
 
-def phase_train() -> dict:
+#: the kernels each train phase must launch once per round, and no other
+TRAIN_KERNELS = {
+    "float32": ("server_apply",),
+    "topk": ("server_apply", "topk_mask_ef"),
+    "bf16": ("server_apply", "sr_bf16"),
+    "int8": ("server_apply", "int8_quant", "int8_dequant"),
+}
+
+
+def phase_train(uplink: str) -> dict:
     import torch
     from repro_torch.kernels.fedcore import kernel as K
     from repro_torch.launch import train as T
     from repro_torch.tree import tree_leaves
 
     args = T.parse_args(["--arch", "photon-75m", "--fused-server", "--rounds", "2",
-                         "--device", "cuda"])
+                         "--uplink", uplink, "--device", "cuda"])
     torch.cuda.synchronize()
-    K.server_apply.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for fn in K.KERNELS.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     out = T.run(args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"server_apply": K.server_apply.launches}
+    launches = {name: fn.launches for name, fn in K.KERNELS.items()}
 
     tokens_per_round = args.clients * args.local_steps * args.batch * args.seq_len
     for row in out["history"]:
-        emit("train", round=row["round"], loss=row["train_loss"], val_ppl=row["val_ppl"],
-             pseudo_grad_norm=row["pseudo_grad_norm"],
+        emit("train", uplink=uplink, round=row["round"], loss=row["train_loss"],
+             val_ppl=row["val_ppl"], pseudo_grad_norm=row["pseudo_grad_norm"],
              global_model_norm=row["global_model_norm"], seconds=row["seconds"],
-             tokens_per_s=tokens_per_round / row["seconds"])
+             tokens_per_s=tokens_per_round / row["seconds"],
+             uplink_residual_norm=row.get("uplink_residual_norm"),
+             uplink_bytes_per_client=row["uplink_bytes_per_client"],
+             uplink_compression_ratio=row["uplink_compression_ratio"])
     leaves = tree_leaves(out["state"]["params"])
     n_params = sum(x.numel() for x in leaves)
-    emit("train", total_seconds=seconds, launches=launches, n_params=n_params,
+    emit("train", uplink=uplink, total_seconds=seconds, launches=launches, n_params=n_params,
          peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9)
     # photon-75m's 74,100,992 params fill exactly the flat length the kernel
-    # phase ran at, once padded to the reference's 8192-element blocks
+    # phases ran at, once padded to the reference's 8192-element blocks
     assert -(-n_params // 8192) * 8192 == NP_PHOTON_75M, n_params
     assert all(bool(torch.isfinite(x).all()) for x in leaves), "non-finite params"
     for row in out["history"]:
         assert math.isfinite(row["train_loss"]) and math.isfinite(row["val_ppl"]), row
-    assert launches["server_apply"] == args.rounds, launches
+        if uplink == "topk":
+            assert math.isfinite(row["uplink_residual_norm"]), row
+    want = {name: args.rounds if name in TRAIN_KERNELS[uplink] else 0 for name in launches}
+    assert launches == want, (uplink, launches, want)
+    del out
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -236,23 +367,35 @@ def main() -> int:
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     phase_build()
     sa = phase_server_apply()
+    codecs = phase_codecs()
     phase_check()
-    launches = phase_train()
+    launches = {uplink: phase_train(uplink) for uplink in TRAIN_KERNELS}
 
     main_case = sa[("fedavg", False)]  # the main path: FedAvg, no DP noise, C = 4
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "server_apply",
         "route": "cuda",
         "source": "src/repro_torch/csrc/fedcore_server_apply.cu",
         "replaces": "src/repro/kernels/fedcore/kernel.py:141",
-        "launches": launches["server_apply"],
+        "launches": launches["float32"]["server_apply"],
         "max_abs_err": main_case["max_abs_err_params"],
         "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+        "library_note": "no single PyTorch call computes the fused mean + update + norms",
+    }]
+    for name, uplink, line, note in CODEC_KERNELS:
+        r = codecs[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/fedcore_codecs.cu",
+            "replaces": f"src/repro/kernels/fedcore/kernel.py:{line}",
+            "launches": launches[uplink][name], "max_abs_err": r["max_abs_err"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "library_note": note,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import json
 import os
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -42,8 +43,19 @@ def save_pytree(path: str, tree) -> None:
     _atomic_write(path, lambda f: np.savez(f, **flat))
 
 
+@dataclass(frozen=True)
+class TensorSpec:
+    """Shape, dtype and device of a template leaf that is not allocated (the
+    reference's ``jax.ShapeDtypeStruct``): a checkpoint template describes the
+    residual lane of every ever-selected client without holding it."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    device: Any = "cpu"
+
+
 def _like_leaf(arr: np.ndarray, like):
-    if isinstance(like, torch.Tensor):
+    if isinstance(like, (torch.Tensor, TensorSpec)):
         return torch.from_numpy(np.array(arr)).to(dtype=like.dtype, device=like.device)
     if isinstance(like, np.ndarray):
         return np.asarray(arr, dtype=like.dtype)

@@ -1,15 +1,29 @@
-"""The Photon federated pre-training engine: the synchronous path."""
+"""The Photon federated pre-training engine: the synchronous path and the
+uplink codecs."""
 from repro_torch.core.aggregator import (  # noqa: F401
     AGGREGATOR_SCHEMA_VERSION,
     SyncAggregator,
     partial_progress_weights,
 )
+from repro_torch.core.compression import (  # noqa: F401
+    UPLINK_SCHEMES,
+    Bf16Codec,
+    Codec,
+    IdentityCodec,
+    Int8Codec,
+    TopKCodec,
+    get_codec,
+    uplink_bytes,
+)
 from repro_torch.core.federated import (  # noqa: F401
     FederatedConfig,
+    SparseResidualStore,
     aggregation_metrics,
     apply_aggregate,
     federated_round,
+    federated_round_with_uplink,
     init_federated_state,
+    init_uplink_residuals,
     prng_key,
     run_clients,
 )

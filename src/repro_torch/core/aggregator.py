@@ -8,12 +8,19 @@ The aggregator owns the server state and three policies:
       τ_i steps it realized);
   (b) weights — FedAvg data-size weights scaled by τ_i/τ under partial
       progress (:func:`partial_progress_weights`);
-  (c) the checkpoint schema — the state tree (params/outer/round/rng) plus a
-      ``{"schema", "kind", "round"}`` manifest, key for key the reference's, so
-      a checkpoint written by either package resumes in the other.
+  (c) the checkpoint schema — the state tree (params/outer/round/rng, plus a
+      sparse ``uplink_residuals`` lane for stateful codecs: every
+      ever-selected client's row, stacked in sorted-id order) and a
+      ``{"schema", "kind", "round"[, "uplink_ids"]}`` manifest, key for key
+      the reference's, so a checkpoint written by either package resumes in
+      the other.
 
-Codecs, cohort tiles, robust rules and the async buffer are not ported yet
-(ROADMAP.md).
+With an uplink ``codec`` the clients' deltas are encoded before the server
+phase decodes them; a stateful codec's error-feedback residuals live in a
+:class:`~repro_torch.core.federated.SparseResidualStore` that the aggregator
+gathers the cohort's rows from before the round and scatters the updated
+rows back into after it. Cohort tiles, robust rules and the async buffer are
+not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -23,11 +30,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.compression import Codec
 from repro_torch.core.federated import (
     FederatedConfig,
+    SparseResidualStore,
     federated_round,
     init_federated_state,
 )
+from repro_torch.checkpoint.checkpoint import TensorSpec
 from repro_torch.core.sampler import ParticipationConfig, ParticipationPlan, plan_round
 from repro_torch.tree import clone, tree_leaves, tree_map
 
@@ -66,6 +76,7 @@ class SyncAggregator:
         rng: Optional[np.ndarray] = None,
         state: Optional[Dict[str, Any]] = None,
         fused_server: bool = False,
+        codec: Optional[Codec] = None,
     ):
         if partial_progress or pcfg.partial_progress:
             # the aggregator owns the policy: it teaches the participation
@@ -75,6 +86,10 @@ class SyncAggregator:
         self.pcfg = pcfg
         self.seed = seed
         self.partial_progress = pcfg.partial_progress
+        self.codec = codec
+        self.residual_store = SparseResidualStore.create(
+            codec, params if params is not None else (state or {}).get("params")
+        )
         self._loss_fn = loss_fn
         self._apply_fn = None
         if fused_server:
@@ -115,10 +130,15 @@ class SyncAggregator:
         device = self.device
         w = torch.from_numpy(self.round_weights(plan)).to(device)
         tau = self.tau_steps(plan) if self.partial_progress else None
+        stateful = self.residual_store is not None
+        residuals = self.residual_store.gather(plan.selected) if stateful else None
         self.state, metrics = federated_round(
             self._loss_fn, self.fed, self.state, batches, client_weights=w,
-            tau_steps=tau, apply_fn=self._apply_fn,
+            tau_steps=tau, apply_fn=self._apply_fn, codec=self.codec, residuals=residuals,
         )
+        if stateful:
+            # the cohort's updated rows belong in the population store
+            self.residual_store.scatter(plan.selected, self.state.pop("uplink_residuals"))
         return metrics
 
     @property
@@ -131,13 +151,47 @@ class SyncAggregator:
         round cannot change what the caller saves."""
         manifest = {"schema": AGGREGATOR_SCHEMA_VERSION, "kind": self.kind,
                     "round": int(self.state["round"])}
-        return tree_map(_host_copy, self.state), manifest
+        tree = tree_map(_host_copy, self.state)
+        if self.residual_store is not None:
+            # sparse lane: every ever-selected client's row in sorted-id
+            # order; the id list rides the manifest so a load template can be
+            # sized without reading the npz
+            manifest["uplink_ids"] = self.residual_store.ids()
+            tree["uplink_residuals"] = tree_map(_host_copy, self.residual_store.stacked())
+        return tree, manifest
 
     def restore(self, state: Dict[str, Any], manifest: Optional[Dict[str, Any]] = None) -> None:
         """Adopt a restored state tree (as :func:`checkpoint.load_pytree`
-        returns it, with the template's devices)."""
+        returns it, with the template's devices). An ``uplink_residuals`` lane
+        goes to the sparse store: with ``manifest["uplink_ids"]`` it is the
+        sparse stacked layout; without, a legacy dense ``(population, ...)``
+        lane, whose all-zero rows stay unmaterialized."""
         if isinstance(manifest, dict):
             self.validate_manifest(manifest, self.kind)
+        state = dict(state)
+        res = state.pop("uplink_residuals", None)
+        if res is not None:
+            if self.codec is None or not self.codec.stateful:
+                raise ValueError(
+                    "restored state carries per-client error-feedback residuals but this "
+                    "aggregator's codec is not stateful — pass the codec the checkpoint "
+                    "was written with"
+                )
+            ids = manifest.get("uplink_ids") if isinstance(manifest, dict) else None
+            leading = tree_leaves(res)[0].shape[0]
+            if ids is not None:
+                if len(ids) != leading:
+                    raise ValueError(f"uplink_residuals lane has {leading} rows but the "
+                                     f"manifest lists {len(ids)} uplink_ids")
+                self.residual_store = SparseResidualStore.from_stacked(state["params"], ids, res)
+            elif leading == self.pcfg.population:
+                self.residual_store = SparseResidualStore.from_dense(state["params"], res)
+            else:
+                raise ValueError(
+                    f"uplink_residuals lane has leading dim {leading}, which matches neither "
+                    f"the manifest's uplink_ids (absent) nor the dense "
+                    f"(population={self.pcfg.population}, ...) layout"
+                )
         self.state = clone(state)
 
     @staticmethod
@@ -152,10 +206,21 @@ class SyncAggregator:
             )
 
     @classmethod
-    def checkpoint_template(cls, fed: FederatedConfig, params_like) -> Dict[str, Any]:
+    def checkpoint_template(cls, fed: FederatedConfig, pcfg: ParticipationConfig, params_like,
+                            codec: Optional[Codec] = None, uplink_ids=None) -> Dict[str, Any]:
         """A state tree shaped like ``checkpoint()[0]``: the ``like`` argument
-        of ``checkpoint.load_pytree``."""
-        return init_federated_state(fed, params_like)
+        of ``checkpoint.load_pytree``. ``uplink_ids`` (the manifest's id list)
+        sizes the residual lane; ``None`` means the legacy dense ``(P, ...)``
+        layout. The lane's leaves are :class:`~repro_torch.checkpoint.
+        TensorSpec`s: a template never allocates the store it describes."""
+        state = init_federated_state(fed, params_like)
+        if codec is not None and codec.stateful:
+            n = pcfg.population if uplink_ids is None else len(uplink_ids)
+            state["uplink_residuals"] = tree_map(
+                lambda p: TensorSpec((n,) + tuple(p.shape), torch.float32, p.device),
+                params_like,
+            )
+        return state
 
 
 def _host_copy(x):

@@ -20,6 +20,13 @@ Server state is ``{"params", "outer", "round", "rng"}`` with the reference's
 key paths. ``rng`` is kept as the reference's ``(2,)`` uint32 key, but this
 package advances it by its own rule (:func:`split_rng`): it seeds only the DP
 noise, which no test compares bitwise.
+
+With an uplink ``codec`` (``core/compression``) the clients' deltas leave
+:func:`run_clients` as encoded payloads, one cohort encode
+(``codec.encode_cohort``), and the server phase decodes them first. A
+stateful codec's error-feedback residuals are per-client state: the cohort's
+rows come in as ``residuals`` and the updated rows go out, kept in a
+population-keyed :class:`SparseResidualStore` by the aggregator.
 """
 from __future__ import annotations
 
@@ -29,9 +36,17 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.compression import Codec
 from repro_torch.core.inner_opt import InnerOptConfig, init_inner_state, inner_update
 from repro_torch.core.outer_opt import OuterOptConfig, init_outer_state, outer_update
-from repro_torch.tree import global_norm, tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import (
+    global_norm,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_stack,
+    tree_unflatten,
+)
 
 
 @dataclass(frozen=True)
@@ -65,6 +80,16 @@ def split_rng(rng: np.ndarray) -> Tuple[np.ndarray, int]:
     words = np.random.SeedSequence([int(x) for x in np.asarray(rng, np.uint32)])
     w = words.generate_state(4, np.uint32)
     return w[:2].copy(), (int(w[2]) << 32) | int(w[3])
+
+
+def uplink_keys(state: Dict[str, Any], C: int) -> List[np.ndarray]:
+    """One ``(2,)`` uint32 key per cohort client for the codec's randomness,
+    derived from the rng lane and the round, never consumed: the server's
+    DP-noise draw is untouched (the reference's fold_in + split)."""
+    rng = np.asarray(state["rng"] if "rng" in state else prng_key(0), np.uint32)
+    seq = np.random.SeedSequence([int(x) for x in rng] + [int(state["round"]), 0x5EED])
+    words = seq.generate_state(2 * C, np.uint32)
+    return [words[2 * c:2 * c + 2].copy() for c in range(C)]
 
 
 def init_federated_state(fed: FederatedConfig, params, rng: Optional[np.ndarray] = None
@@ -151,13 +176,18 @@ def run_clients(
     batches: Dict[str, torch.Tensor],  # leaves (τ, C, ...)
     client_weights=None,  # (C,) elastic participation weights
     tau_steps: Optional[np.ndarray] = None,  # (C,) realized per-client steps τ_i
+    codec: Optional[Codec] = None,  # uplink codec; encodes the emitted deltas
+    residuals=None,  # (C, ...) per-client error-feedback residuals
 ) -> Tuple[Any, Dict[str, Any]]:
     """Client phase (Algorithm 1, L.4–7). Returns ``(deltas, aux)``: deltas
-    are (C, ...) float32 leaves; ``aux`` holds the client-side metric pieces.
+    are (C, ...) float32 leaves, or with a ``codec`` the encoded payloads;
+    ``aux`` holds the client-side metric pieces, and for a stateful codec the
+    updated ``residuals`` rows and their ``uplink_residual_norm``.
 
     ``tau_steps`` is the straggler partial-progress budget: client c runs its
     first τ_c steps and holds its params after that. A zero-weight client
-    still trains (its delta is weighted out), as in the reference."""
+    still trains (its delta is weighted out), as in the reference, but keeps
+    its old residual bitwise: it never uploaded."""
     C, tau = fed.clients_per_round, fed.local_steps
     elastic = client_weights is not None
     part = None
@@ -228,7 +258,22 @@ def run_clients(
                                    for d in deltas))
             scale = torch.clamp(fed.dp_clip / (norms + 1e-9), max=1.0)
             deltas = [d * scale.reshape((-1,) + (1,) * (d.ndim - 1)) for d in deltas]
-        if fed.pseudo_grad_dtype != "float32":
+        out = new_residuals = None
+        if codec is not None:  # encoded uplink: deltas leave as codec payloads
+            rngs = uplink_keys(state, C) if codec.needs_rng else None
+            if codec.stateful and residuals is None:  # first-ever upload
+                residuals = tree_map(lambda d: torch.zeros_like(d), tree_unflatten(treedef, deltas))
+            out, new_residuals = codec.encode_cohort(
+                tree_unflatten(treedef, deltas), residuals if codec.stateful else None, rngs
+            )
+            if codec.stateful and elastic:
+                # a masked client never uploaded: its residual stays bitwise
+                keep = torch.from_numpy(w_host > 0).to(device)
+                new_residuals = tree_map(
+                    lambda n, o: torch.where(keep.reshape((-1,) + (1,) * (n.ndim - 1)), n, o),
+                    new_residuals, residuals,
+                )
+        elif fed.pseudo_grad_dtype != "float32":
             dt = getattr(torch, fed.pseudo_grad_dtype)
             deltas = [d.to(dt).float() for d in deltas]
 
@@ -264,7 +309,15 @@ def run_clients(
         "client_model_norm_mean": client_norm_mean,
         "avg_client_model_norm": avg_client_norm,
     }
-    return tree_unflatten(treedef, deltas), aux
+    if new_residuals is not None:
+        with torch.no_grad():
+            res_norms = _client_norms(new_residuals)  # (C,) EF telemetry
+            aux["residuals"] = new_residuals
+            aux["uplink_residual_norm"] = (
+                torch.sum(res_norms * torch.from_numpy(metric_w).to(device)) if elastic
+                else torch.mean(res_norms)
+            )
+    return (out if codec is not None else tree_unflatten(treedef, deltas)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -352,10 +405,10 @@ def apply_aggregate(
     codec=None,
 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """Server phase (Algorithm 1, L.8–9), per leaf: ONE weighted mean of the
-    pseudo-gradients, optional DP noise, the outer update. Leaves ``state``
-    untouched and returns the new one."""
+    pseudo-gradients (decoded first when a ``codec`` encoded them), optional DP
+    noise, the outer update. Leaves ``state`` untouched and returns the new one."""
     if codec is not None:
-        raise ValueError("uplink codecs are not ported yet (ROADMAP.md queue A)")
+        deltas = codec.decode_cohort(deltas)
     if client_weights is not None:
         w = client_weights.float()
         w_sum = torch.clamp(torch.sum(w), min=1e-12)
@@ -398,13 +451,18 @@ def federated_round(
     client_weights: Optional[torch.Tensor] = None,
     tau_steps: Optional[np.ndarray] = None,
     apply_fn: Optional[Callable] = None,  # server-phase override (the fused kernel path)
+    codec: Optional[Codec] = None,  # uplink codec (encode client-side, decode server-side)
+    residuals=None,  # (C, ...) cohort error-feedback residuals
 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """One full round — :func:`run_clients` then the server phase
-    (``apply_fn`` or :func:`apply_aggregate`, same signature and contract)."""
+    (``apply_fn`` or :func:`apply_aggregate`, same signature and contract).
+    For a stateful codec the cohort's updated residual rows come back as
+    ``new_state["uplink_residuals"]``, with ``uplink_residual_norm`` in the
+    metrics; :func:`federated_round_with_uplink` keeps them population-keyed."""
     deltas, aux = run_clients(loss_fn, fed, state, batches, client_weights=client_weights,
-                              tau_steps=tau_steps)
+                              tau_steps=tau_steps, codec=codec, residuals=residuals)
     new_state, agg_metrics = (apply_fn or apply_aggregate)(
-        fed, state, deltas, client_weights=client_weights
+        fed, state, deltas, client_weights=client_weights, codec=codec
     )
     del deltas
     sm = aux["step_metrics"]
@@ -420,4 +478,166 @@ def federated_round(
     }
     if fed.keep_inner_state:
         new_state["inner"] = aux["inner"]
+    if "residuals" in aux:
+        new_state["uplink_residuals"] = aux["residuals"]
+        metrics["uplink_residual_norm"] = aux["uplink_residual_norm"]
     return new_state, metrics
+
+
+# ---------------------------------------------------------------------------
+# Population-keyed error-feedback residual store
+# ---------------------------------------------------------------------------
+
+
+def init_uplink_residuals(codec: Optional[Codec], params, population: int):
+    """The dense per-client error-feedback store: one zero residual row per
+    POPULATION client, leaves (P, ...) float32; ``None`` for stateless codecs."""
+    if codec is None or not codec.stateful:
+        return None
+    return tree_map(lambda p: torch.zeros((population,) + tuple(p.shape), dtype=torch.float32,
+                                          device=p.device), params)
+
+
+class SparseResidualStore:
+    """Population-keyed error-feedback store that materializes rows only for
+    clients that have ever sat in a cohort: an ``id → row`` map, each row a
+    params-shaped float32 tree on the params' device. Its observable semantics
+    are the dense store's (:func:`init_uplink_residuals`): a never-materialized
+    id gathers as the zero row; memory is ``O(#ever-selected · N)``.
+
+    Checkpointing: :meth:`stacked` emits the rows as one ``(n_ids, ...)`` tree
+    in sorted-id order (the manifest records :meth:`ids`); :meth:`to_dense`
+    gives the legacy dense layout and :meth:`from_dense` ingests it, leaving
+    all-zero rows unmaterialized."""
+
+    def __init__(self, params_like):
+        # shapes only: meta tensors hold no memory; rows live on the params' device
+        self._template = tree_map(lambda p: torch.empty(p.shape, device="meta"), params_like)
+        self._device = tree_leaves(params_like)[0].device
+        self._rows: Dict[int, Any] = {}
+
+    @classmethod
+    def create(cls, codec: Optional[Codec], params) -> Optional["SparseResidualStore"]:
+        """``None`` for stateless codecs — mirrors :func:`init_uplink_residuals`."""
+        if codec is None or not codec.stateful:
+            return None
+        return cls(params)
+
+    def _zeros(self, lead: Tuple[int, ...] = ()):
+        return tree_map(lambda t: torch.zeros(lead + tuple(t.shape), dtype=torch.float32,
+                                              device=self._device), self._template)
+
+    # ---- row accounting ----
+
+    def ids(self) -> List[int]:
+        """Sorted population ids that own a materialized row."""
+        return sorted(self._rows)
+
+    def __len__(self) -> int:
+        return len(self._rows)
+
+    def __contains__(self, cid) -> bool:
+        return int(cid) in self._rows
+
+    @property
+    def row_nbytes(self) -> int:
+        return sum(4 * t.numel() for t in tree_leaves(self._template))
+
+    @property
+    def nbytes(self) -> int:
+        """Exact bytes held: rows × params size. The dense equivalent is P × params."""
+        return len(self._rows) * self.row_nbytes
+
+    def row(self, cid):
+        """One client's row; never-materialized ids read as the zero row."""
+        cid = int(cid)
+        return self._rows[cid] if cid in self._rows else self._zeros()
+
+    # ---- the gather/scatter contract the round uses ----
+
+    def gather(self, ids):
+        """Stacked ``(C, ...)`` cohort rows (unmaterialized ids are zero)."""
+        rows = [self.row(i) for i in np.asarray(ids).tolist()]
+        return tree_stack(rows)
+
+    def scatter(self, ids, stacked, mask=None) -> None:
+        """Write a cohort's updated rows back, materializing on first touch.
+        ``mask[k]`` False skips slot ``k`` (a padding slot). Each row is a copy,
+        so a row never pins the cohort buffer it came from."""
+        for k, cid in enumerate(np.asarray(ids).tolist()):
+            if mask is not None and not bool(mask[k]):
+                continue
+            self._rows[int(cid)] = tree_map(lambda x: x[k].clone(), stacked)
+
+    # ---- checkpoint lanes ----
+
+    def stacked(self):
+        """All rows as one ``(n_ids, ...)`` tree in sorted-id order."""
+        ids = self.ids()
+        if not ids:
+            return self._zeros((0,))
+        return tree_stack([self._rows[i] for i in ids])
+
+    def to_dense(self, population: int):
+        """Materialize the legacy dense ``(P, ...)`` layout."""
+        dense = self._zeros((population,))
+        for cid in self.ids():
+            for d, r in zip(tree_leaves(dense), tree_leaves(self._rows[cid])):
+                d[cid] = r
+        return dense
+
+    @classmethod
+    def from_stacked(cls, params_like, ids, stacked) -> "SparseResidualStore":
+        """Rebuild from the canonical checkpoint lane (manifest ids + stacked rows)."""
+        store = cls(params_like)
+        store.scatter([int(i) for i in ids], stacked)
+        return store
+
+    @classmethod
+    def from_dense(cls, params_like, dense) -> "SparseResidualStore":
+        """Ingest a legacy dense ``(P, ...)`` store; all-zero rows stay
+        unmaterialized (a zero row and no row gather alike)."""
+        store = cls(params_like)
+        leaves = tree_leaves(dense)
+        owned = torch.zeros(leaves[0].shape[0], dtype=torch.bool, device=leaves[0].device)
+        for leaf in leaves:
+            owned |= torch.any(leaf.reshape(leaf.shape[0], -1) != 0, dim=1)
+        for cid in torch.nonzero(owned).flatten().tolist():
+            store._rows[int(cid)] = tree_map(lambda x: x[cid].clone(), dense)
+        return store
+
+
+def federated_round_with_uplink(
+    loss_fn: Callable,
+    fed: FederatedConfig,
+    codec: Optional[Codec],
+    state: Dict[str, Any],
+    batches: Dict[str, torch.Tensor],
+    client_weights: Optional[torch.Tensor] = None,
+    selected=None,  # (C,) population ids bound to the client axis
+    tau_steps: Optional[np.ndarray] = None,
+    apply_fn: Optional[Callable] = None,
+) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+    """:func:`federated_round` wired to a dense population-keyed residual
+    store ``state["uplink_residuals"]`` (leaves (P, ...)): the cohort's rows
+    are gathered by ``selected``, the round runs, and the updated rows scatter
+    back (masked clients' rows come back bitwise unchanged). Stateless codecs
+    (and ``codec=None``) reduce to plain :func:`federated_round`."""
+    if codec is None or not codec.stateful:
+        return federated_round(loss_fn, fed, state, batches, client_weights=client_weights,
+                               tau_steps=tau_steps, apply_fn=apply_fn, codec=codec)
+    if selected is None:
+        raise ValueError("stateful uplink codec requires the cohort's population ids")
+    store = state["uplink_residuals"]
+    core = {k: v for k, v in state.items() if k != "uplink_residuals"}
+    sel = torch.as_tensor(np.asarray(selected, np.int64))
+    cohort_res = tree_map(lambda r: r.index_select(0, sel.to(r.device)), store)
+    new_core, metrics = federated_round(
+        loss_fn, fed, core, batches, client_weights=client_weights, tau_steps=tau_steps,
+        apply_fn=apply_fn, codec=codec, residuals=cohort_res,
+    )
+    new_cohort_res = new_core.pop("uplink_residuals")
+    new_core["uplink_residuals"] = tree_map(
+        lambda r, n: r.index_copy(0, sel.to(r.device), n), store, new_cohort_res
+    )
+    return new_core, metrics

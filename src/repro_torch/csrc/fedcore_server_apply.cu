@@ -23,6 +23,16 @@
 // order, so here each block writes its partial sums (2 + C doubles) to a
 // scratch row, and a second kernel sums the rows in a fixed order. No atomics:
 // the norms are bitwise identical from run to run.
+//
+// Cohorts of any width: one launch keeps at most 32 per-client weights and
+// norm accumulators in registers, so a wider cohort is taken in chunks of 32
+// clients, one launch each. Every chunk but the last adds its weighted sum to
+// a (n,) f32 scratch buffer (the first starts it from zero); the last adds its
+// share, the noise and applies the update. That is the plain version's
+// client-by-client sequence of f32 additions, so the result stays bitwise
+// with it. Each chunk writes its own clients' norm columns of the partials;
+// the extra bytes (the scratch written and read once per extra chunk) are
+// paid only when C > 32.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,6 +40,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 32;  // clients per launch (register accumulators)
 
 enum Opt { kFedAvg = 0, kFedMom = 1, kFedAdam = 2 };
 
@@ -65,13 +76,19 @@ __device__ __forceinline__ double warp_sum(double x) {
   return x;
 }
 
-// MAXC bounds the cohort at compile time so the per-client accumulators stay
-// in registers; clients k >= c are skipped.
+// MAXC bounds the chunk at compile time so the per-client accumulators stay
+// in registers; clients k >= c are skipped. `first`: the running sum starts
+// from zero, else from `scratch`; `last`: add the noise and apply the update,
+// else store the running sum to `scratch`. Norm partials go to columns
+// [col0, col0 + c) of the (grid, width) partials, plus columns 0 and 1 (pg and
+// the new params) on the last chunk.
 template <int MAXC>
 __global__ void __launch_bounds__(kThreads) server_apply_kernel(
     const float* __restrict__ deltas, const float* __restrict__ wn, float* params,
-    float* lane0, float* lane1, const float* __restrict__ noise,
-    double* __restrict__ partials, int64_t n4, int c, Hyper h) {
+    float* lane0, float* lane1, const float* __restrict__ noise, float* scratch,
+    double* __restrict__ partials, int64_t n4, int c, int width, int col0, bool first,
+    bool last, Hyper h) {
+  constexpr int kBatch = MAXC < 8 ? MAXC : 8;
   float w[MAXC];
   double acc_d[MAXC];
 #pragma unroll
@@ -83,23 +100,40 @@ __global__ void __launch_bounds__(kThreads) server_apply_kernel(
 
   const float4* d4 = reinterpret_cast<const float4*>(deltas);
   const float4* z4 = reinterpret_cast<const float4*>(noise);
+  float4* s4 = reinterpret_cast<float4*>(scratch);
   float4* p4 = reinterpret_cast<float4*>(params);
   float4* m4 = reinterpret_cast<float4*>(lane0);
   float4* v4 = reinterpret_cast<float4*>(lane1);
   const int64_t stride = (int64_t)gridDim.x * kThreads;
 
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n4; i += stride) {
-    float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 g = first ? make_float4(0.f, 0.f, 0.f, 0.f) : s4[i];
+    // the clients' loads go out kBatch at a time before any is used, so each
+    // thread keeps several 16-byte loads in flight; the sum still runs client
+    // by client in order
 #pragma unroll
-    for (int k = 0; k < MAXC; ++k) {
-      if (k < c) {
-        const float4 d = __ldcs(d4 + (int64_t)k * n4 + i);
-        g.x += w[k] * d.x;
-        g.y += w[k] * d.y;
-        g.z += w[k] * d.z;
-        g.w += w[k] * d.w;
-        acc_d[k] += sq4(d);
+    for (int k0 = 0; k0 < MAXC; k0 += kBatch) {
+      float4 d[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int k = k0 + j;
+        d[j] = k < c ? __ldcs(d4 + (int64_t)k * n4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
       }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int k = k0 + j;
+        if (k < c) {
+          g.x += w[k] * d[j].x;
+          g.y += w[k] * d[j].y;
+          g.z += w[k] * d[j].z;
+          g.w += w[k] * d[j].w;
+          acc_d[k] += sq4(d[j]);
+        }
+      }
+    }
+    if (!last) {
+      s4[i] = g;
+      continue;
     }
     if (z4 != nullptr) {
       const float4 z = __ldcs(z4 + i);
@@ -136,11 +170,12 @@ __global__ void __launch_bounds__(kThreads) server_apply_kernel(
     for (int k = 0; k < MAXC; ++k) smem[warp][2 + k] = acc_d[k];
   }
   __syncthreads();
-  const int width = 2 + c;
-  if (threadIdx.x < width) {
+  const int j = threadIdx.x;
+  if (j < 2 + c && (last || j >= 2)) {
     double s = 0.0;
-    for (int wi = 0; wi < kWarps; ++wi) s += smem[wi][threadIdx.x];
-    partials[(int64_t)blockIdx.x * width + threadIdx.x] = s;
+    for (int wi = 0; wi < kWarps; ++wi) s += smem[wi][j];
+    const int col = j < 2 ? j : col0 + (j - 2);
+    partials[(int64_t)blockIdx.x * width + col] = s;
   }
 }
 
@@ -164,30 +199,34 @@ __global__ void __launch_bounds__(kThreads) reduce_partials_kernel(
 
 template <int MAXC>
 void launch(int grid, cudaStream_t stream, const float* deltas, const float* wn, float* params,
-            float* lane0, float* lane1, const float* noise, double* partials, int64_t n4, int c,
-            const Hyper& h) {
-  server_apply_kernel<MAXC><<<grid, kThreads, 0, stream>>>(deltas, wn, params, lane0, lane1,
-                                                           noise, partials, n4, c, h);
+            float* lane0, float* lane1, const float* noise, float* scratch, double* partials,
+            int64_t n4, int c, int width, int col0, bool first, bool last, const Hyper& h) {
+  server_apply_kernel<MAXC><<<grid, kThreads, 0, stream>>>(
+      deltas, wn, params, lane0, lane1, noise, scratch, partials, n4, c, width, col0, first,
+      last, h);
 }
 
 }  // namespace
 
 extern "C" {
 
-// deltas (c, n) f32 with 1 <= c <= 32; wn (c,) f32 weights already divided by their sum;
+// deltas (c, n) f32, c >= 1; wn (c,) f32 weights already divided by their sum;
 // params/lane0/lane1 (n,) f32 updated in place (lanes null when unused);
-// noise (n,) f32 or null; partials (grid, 2 + c) f64 scratch;
+// noise (n,) f32 or null; scratch (n,) f32, needed (and written) only when
+// c > 32, else may be null; partials (grid, 2 + c) f64 scratch;
 // out (2 + c,) f32 = [||pg||^2, ||new params||^2, ||delta_0||^2, ...].
 // one_minus_* are passed in (not formed here) so they carry the float32 value
 // of the double difference, as the reference's constants do.
 // n must be a multiple of 4 and every pointer 16-byte aligned.
-// Returns cudaGetLastError() after both launches.
+// Returns cudaGetLastError() after the launches.
 int fedcore_server_apply(const float* deltas, const float* wn, float* params, float* lane0,
-                         float* lane1, const float* noise, double* partials, float* out,
-                         long long n, int c, int opt, int nesterov, float lr, float momentum,
-                         float one_minus_momentum, float beta2, float one_minus_beta2,
-                         float eps, float b1c, float b2c, int grid, void* stream) {
-  if (c < 1 || c > 32 || n % 4 != 0 || grid < 1 || opt < kFedAvg || opt > kFedAdam) {
+                         float* lane1, const float* noise, float* scratch, double* partials,
+                         float* out, long long n, int c, int opt, int nesterov, float lr,
+                         float momentum, float one_minus_momentum, float beta2,
+                         float one_minus_beta2, float eps, float b1c, float b2c, int grid,
+                         void* stream) {
+  if (c < 1 || n % 4 != 0 || grid < 1 || opt < kFedAvg || opt > kFedAdam ||
+      (c > kChunk && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Hyper h;
@@ -203,18 +242,29 @@ int fedcore_server_apply(const float* deltas, const float* wn, float* params, fl
   h.nesterov = nesterov;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n4 = n / 4;
-  if (c <= 4) {
-    launch<4>(grid, s, deltas, wn, params, lane0, lane1, noise, partials, n4, c, h);
-  } else if (c <= 8) {
-    launch<8>(grid, s, deltas, wn, params, lane0, lane1, noise, partials, n4, c, h);
-  } else if (c <= 16) {
-    launch<16>(grid, s, deltas, wn, params, lane0, lane1, noise, partials, n4, c, h);
-  } else {
-    launch<32>(grid, s, deltas, wn, params, lane0, lane1, noise, partials, n4, c, h);
+  const int width = 2 + c;
+  for (int c0 = 0; c0 < c; c0 += kChunk) {
+    const int cc = c - c0 < kChunk ? c - c0 : kChunk;
+    const bool first = c0 == 0, last = c0 + cc == c;
+    const float* d = deltas + (int64_t)c0 * n;
+    const float* w = wn + c0;
+    if (cc <= 4) {
+      launch<4>(grid, s, d, w, params, lane0, lane1, noise, scratch, partials, n4, cc, width,
+                2 + c0, first, last, h);
+    } else if (cc <= 8) {
+      launch<8>(grid, s, d, w, params, lane0, lane1, noise, scratch, partials, n4, cc, width,
+                2 + c0, first, last, h);
+    } else if (cc <= 16) {
+      launch<16>(grid, s, d, w, params, lane0, lane1, noise, scratch, partials, n4, cc, width,
+                 2 + c0, first, last, h);
+    } else {
+      launch<32>(grid, s, d, w, params, lane0, lane1, noise, scratch, partials, n4, cc, width,
+                 2 + c0, first, last, h);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<2 + c, kThreads, 0, s>>>(partials, grid, 2 + c, out);
+  reduce_partials_kernel<<<width, kThreads, 0, s>>>(partials, grid, width, out);
   return (int)cudaGetLastError();
 }
 

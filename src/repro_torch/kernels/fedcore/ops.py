@@ -12,7 +12,13 @@ Client-axis trees (leaves ``(C, ...)``) pack into one ``(C, N)`` buffer.
 dtype group replaces the per-leaf weighted-mean → DP-noise → outer-update chain,
 with the aggregation metrics taken from the kernel's reductions. As in the
 reference it differs from the per-leaf path by float reassociation (it scales
-by w/Σw before summing) and draws DP noise per flat group.
+by w/Σw before summing) and draws DP noise per flat group. With a codec it
+decodes the payloads first.
+
+The fused uplink codecs (:class:`FusedTopKCodec`, :class:`FusedBf16Codec`,
+:class:`FusedInt8Codec`) are drop-in ``core/compression`` codecs on the same
+layout: the cohort's deltas pack into one ``(C, Np)`` buffer and one codec
+kernel launch encodes (and for int8 decodes) every client and leaf at once.
 """
 from __future__ import annotations
 
@@ -21,10 +27,18 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.compression import (
+    Bf16Codec,
+    Int8Codec,
+    TopKCodec,
+    _topk_index_nbytes,
+    int8_payload_leaves,
+    int8_scale,
+)
 from repro_torch.core.federated import aggregation_metrics, dp_noise_scale, split_rng
 from repro_torch.core.outer_opt import OUTER_LANES, adam_bias_corrections
 from repro_torch.kernels.fedcore import kernel as K
-from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 # the reference's flat-buffer block; the padded length is a multiple of it
 BLOCK = 8192
@@ -94,6 +108,13 @@ def pack_client_leaves(leaves: Sequence[torch.Tensor], c: int, pad_multiple: int
     return flat, FlatSpec(shapes=shapes, n=n, n_pad=n_pad)
 
 
+def unpack_client_leaves(flat: torch.Tensor, spec: FlatSpec) -> List[torch.Tensor]:
+    """Views of a ``(C, N_pad)`` buffer in the leaves' ``(C, ...)`` shapes."""
+    c = flat.shape[0]
+    return [flat[:, off:off + _leaf_size(shape)].view((c,) + shape)
+            for shape, off in zip(spec.shapes, spec.offsets)]
+
+
 def dtype_group_indices(leaves: Sequence[torch.Tensor]) -> List[Tuple[Any, List[int]]]:
     """Group leaf indices by dtype, preserving first-seen order."""
     groups: List[Tuple[Any, List[int]]] = []
@@ -113,14 +134,12 @@ def fused_apply_aggregate(
     deltas,  # tree, leaves (C, ...) — pseudo-gradients
     client_weights: Optional[torch.Tensor] = None,
     codec=None,
-    *,
-    block: int = BLOCK,
 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """Server phase on the flat-buffer layout: one ``server_apply`` pass per
     dtype group. Leaves ``state`` untouched: the kernel writes the new params
     and lanes over freshly packed copies, which the new state then views."""
     if codec is not None:
-        raise ValueError("uplink codecs are not ported yet (ROADMAP.md queue A)")
+        deltas = codec.decode_cohort(deltas)
     d_leaves = tree_leaves(deltas)
     C = d_leaves[0].shape[0]
     device = d_leaves[0].device
@@ -147,10 +166,10 @@ def fused_apply_aggregate(
     delta_sq = torch.zeros((C,), dtype=torch.float32, device=device)
 
     for gi, (_, idxs) in enumerate(dtype_group_indices(p_leaves)):
-        p_flat, spec = pack_leaves([p_leaves[i] for i in idxs], block)
-        lanes_flat = [pack_leaves([lanes[i] for i in idxs], block)[0]
+        p_flat, spec = pack_leaves([p_leaves[i] for i in idxs], BLOCK)
+        lanes_flat = [pack_leaves([lanes[i] for i in idxs], BLOCK)[0]
                       for lanes in lane_leaf_lists]
-        d_flat, _ = pack_client_leaves([d_leaves[i].float() for i in idxs], C, block)
+        d_flat, _ = pack_client_leaves([d_leaves[i].float() for i in idxs], C, BLOCK)
         noise_flat = None
         if fed.dp_noise > 0.0:
             gen = torch.Generator(device=device).manual_seed(
@@ -189,3 +208,152 @@ def fused_apply_aggregate(
         "rng": rng,
     }
     return new_state, metrics
+
+
+# ---------------------------------------------------------------------------
+# Fused uplink codecs — drop-in Codec subclasses (core/compression seam)
+# ---------------------------------------------------------------------------
+
+
+def _one_client(codec, delta, residual=None, **kw):
+    """``encode`` of one client through the cohort path (a cohort of one)."""
+    add = lambda t: tree_map(lambda x: x[None], t) if t is not None else None  # noqa: E731
+    payload, res = codec.encode_cohort(add(delta), add(residual), **kw)
+    take = lambda t: tree_map(lambda x: x[0], t) if t is not None else None  # noqa: E731
+    return take(payload), take(res)
+
+
+@dataclass(frozen=True)
+class FusedTopKCodec(TopKCodec):
+    """Flat-buffer top-k with error feedback: each client's delta packs into
+    one row of a ``(C, Np)`` buffer, its threshold is the k-th magnitude of the
+    row's real entries (k = max(1, ⌊N·k_fraction⌋) — a global budget, where the
+    per-leaf codec gives every tensor its own k), and one ``topk_mask_ef``
+    launch masks, selects and updates the residual of the whole cohort.
+    Entries tied at the threshold are all kept, as in the reference."""
+
+    def threshold(self, xf: torch.Tensor, n: int) -> torch.Tensor:
+        """(C,) k-th magnitude of each row's first ``n`` entries: a selection
+        outside the kernel, as ``lax.top_k`` is in the reference. Only its
+        value matters, so the order of ties does not."""
+        k = max(1, int(n * self.k_fraction))
+        return torch.topk(torch.abs(xf[:, :n]), k, dim=1, sorted=False).values.amin(dim=1)
+
+    def encode_cohort(self, deltas, residuals=None, rngs=None):
+        leaves, treedef = tree_flatten(deltas)
+        C = leaves[0].shape[0]
+        x_flat, spec = pack_client_leaves([x.float() for x in leaves], C, BLOCK)
+        if residuals is not None:
+            x_flat += pack_client_leaves(tree_leaves(residuals), C, BLOCK)[0]
+        kept, new_e = K.topk_mask_ef(x_flat, self.threshold(x_flat, spec.n))
+        # payload values ship in the delta's own dtype; the residual stays f32
+        payload = [k.to(d.dtype) for k, d in zip(unpack_client_leaves(kept, spec), leaves)]
+        return (tree_unflatten(treedef, payload),
+                tree_unflatten(treedef, unpack_client_leaves(new_e, spec)))
+
+    def encode(self, delta, residual=None, rng=None):
+        return _one_client(self, delta, residual)
+
+    def nbytes(self, params_like) -> float:
+        n = sum(x.numel() for x in tree_leaves(params_like))
+        return float(max(1, int(n * self.k_fraction))) * (4.0 + _topk_index_nbytes(n))
+
+    def payload_nbytes(self, payload) -> float:
+        # the same GLOBAL budget as nbytes, not the per-leaf count
+        return self.nbytes(payload)
+
+
+class FusedBf16Codec(Bf16Codec):
+    """Flat-buffer bf16 stochastic rounding: the per-leaf noise packs flat and
+    one ``sr_bf16`` launch rounds the whole cohort. Given the same noise the
+    payload is bitwise the per-leaf codec's. Without an rng it is the
+    deterministic round-to-nearest cast, with no kernel."""
+
+    def encode_cohort(self, deltas, residuals=None, rngs=None):
+        if rngs is None:
+            return super().encode_cohort(deltas, residuals)
+        leaves, treedef = tree_flatten(deltas)
+        C = leaves[0].shape[0]
+        x_flat, spec = pack_client_leaves([x.float() for x in leaves], C, BLOCK)
+        noise = self.cohort_noise(leaves, rngs)
+        z_flat, _ = pack_client_leaves([z.to(torch.int32) for z in noise], C, BLOCK)
+        out = K.sr_bf16(x_flat, z_flat)
+        return tree_unflatten(treedef, unpack_client_leaves(out, spec)), residuals
+
+    def encode(self, delta, residual=None, rng=None):
+        if rng is None:
+            return super().encode(delta, residual)
+        return _one_client(self, delta, residual, rngs=[rng])
+
+
+class FusedInt8Codec(Int8Codec):
+    """Per-tensor symmetric int8 over the packed cohort: the per-(client, leaf)
+    absmax scales come from a torch reduction (an XLA reduction in the
+    reference), then one ``int8_quant`` launch quantizes every client and
+    leaf; decode is one ``int8_dequant`` launch. The payload keeps the
+    reference's ``{"q": int8 leaf, "scale": f32}`` format, bitwise."""
+
+    def encode_cohort(self, deltas, residuals=None, rngs=None):
+        leaves, treedef = tree_flatten(deltas)
+        C = leaves[0].shape[0]
+        xs = [x.float() for x in leaves]
+        x_flat, spec = pack_client_leaves(xs, C, BLOCK)
+        scales = torch.stack([int8_scale(x.reshape(C, -1), dim=1) for x in xs], dim=1)
+        q = K.int8_quant(x_flat, scales.contiguous(), spec.offsets + (spec.n,))
+        payload = [{"q": ql, "scale": scales[:, l]}
+                   for l, ql in enumerate(unpack_client_leaves(q, spec))]
+        return tree_unflatten(treedef, payload), residuals
+
+    def decode_cohort(self, payloads):
+        entries, treedef = int8_payload_leaves(payloads)
+        C = entries[0]["q"].shape[0]
+        q_flat, spec = pack_client_leaves([e["q"] for e in entries], C, BLOCK)
+        scales = torch.stack([e["scale"] for e in entries], dim=1).contiguous()
+        out = K.int8_dequant(q_flat, scales, spec.offsets + (spec.n,))
+        return tree_unflatten(treedef, unpack_client_leaves(out, spec))
+
+    def encode(self, delta, residual=None, rng=None):
+        return _one_client(self, delta, residual)
+
+    def decode(self, payload):
+        return tree_map(lambda x: x[0], self.decode_cohort(tree_map(lambda x: x[None], payload)))
+
+
+# ---------------------------------------------------------------------------
+# Analytic bytes-moved accounting (the reference's byte models, unchanged)
+# ---------------------------------------------------------------------------
+
+
+def server_apply_bytes(
+    n: int, c: int, opt: str, dp_noise: bool = False, fused: bool = False,
+    dtype_bytes: int = 4,
+) -> float:
+    """Device-memory bytes one server apply moves, counting each primitive
+    pass over params-sized data (the per-leaf chain materializes each step).
+    Fused kernel: read CN + params + lanes [+ noise N], write params + lanes."""
+    lanes = {"fedavg": 0, "fedmom": 1, "fedadam": 2}[opt]
+    if fused:
+        reads = c * n + n + lanes * n + (n if dp_noise else 0)
+        writes = n + lanes * n
+        return float(dtype_bytes) * (reads + writes)
+    weigh = 2 * c * n  # x * w broadcast materializes (C, N)
+    reduce = c * n + n
+    divide = 2 * n
+    noise = 3 * n if dp_noise else 0  # gen write + (pg, noise) read + write
+    outer = {
+        "fedavg": 3 * n,  # read p, pg; write p
+        "fedmom": 9 * n,  # mom update 3N + nesterov combine 3N + params 3N
+        "fedadam": 10 * n,  # m 3N + v 3N + params read p,m,v write p 4N
+    }[opt]
+    metrics = c * n + 2 * n  # delta norms + pg norm + model norm
+    return float(dtype_bytes) * (weigh + reduce + divide + noise + outer + metrics)
+
+
+def topk_encode_bytes(n: int, fused: bool = False, dtype_bytes: int = 4) -> float:
+    """Bytes one top-k+EF encode moves over the n-element delta. Per leaf: xf
+    add (3n), abs (2n), mask compare (2n), select (3n), residual subtract (3n)
+    and the selection's own read (n). Fused: xf add (3n) + selection read (n)
+    + one mask/EF pass (read xf, write kept + residual = 3n)."""
+    if fused:
+        return float(dtype_bytes) * (3 * n + n + 3 * n)
+    return float(dtype_bytes) * (3 * n + 2 * n + n + 2 * n + 3 * n + 3 * n)

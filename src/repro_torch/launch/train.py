@@ -6,18 +6,23 @@ either package resumes the other's.
 
 ``--fused-server`` runs the server step (weighted mean + DP noise + outer
 update + its norms) as one pass over the flat ``(C, N)`` delta buffer — on the
-card, the hand-written CUDA ``server_apply`` kernel. The run is on ``cuda``
-unless ``--device cpu`` is given; asking for cuda where there is none is an
-error, never a silent fall back.
+card, the hand-written CUDA ``server_apply`` kernel. ``--uplink
+{bf16,int8,topk}`` compresses each client's pseudo-gradient before it crosses
+the wire; with ``--fused-server`` the codecs are the flat-buffer ones, whose
+encode (and int8 decode) run as CUDA kernels on the card. The run is on
+``cuda`` unless ``--device cpu`` is given; asking for cuda where there is
+none is an error, never a silent fall back.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch photon-75m --fused-server
+  PYTHONPATH=src python -m repro_torch.launch.train --arch photon-75m --fused-server \\
+      --uplink topk
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
       --local-steps 2 --clients 2 --population 4 --seq-len 64 --device cpu
 
-Not ported yet, and refused (see ROADMAP.md): ``--aggregation async`` and any
-``--uplink`` other than float32. The socket runtime, the control loop, robust
-aggregation, cohort tiles and tracing have no flags here.
+Not ported yet, and refused (see ROADMAP.md): ``--aggregation async``. The
+socket runtime, the control loop, robust aggregation, cohort tiles and
+tracing have no flags here.
 """
 from __future__ import annotations
 
@@ -31,11 +36,13 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import (
     STRAGGLER_PROFILES,
+    UPLINK_SCHEMES,
     FederatedConfig,
     InnerOptConfig,
     OuterOptConfig,
     ParticipationConfig,
     SyncAggregator,
+    get_codec,
     prng_key,
 )
 from repro_torch.data import build_client_streams, round_batches, validation_stream
@@ -76,13 +83,17 @@ def parse_args(argv=None):
     ap.add_argument("--dp-clip", type=float, default=0.0)
     ap.add_argument("--dp-noise", type=float, default=0.0)
     ap.add_argument("--pseudo-grad-dtype", default="float32",
-                    help="legacy flat-cast uplink (float32 or bfloat16)")
-    ap.add_argument("--uplink", default="float32",
-                    choices=["float32", "bf16", "int8", "topk"],
-                    help="pseudo-gradient uplink codec; only float32 is ported")
+                    help="legacy flat-cast uplink (float32 or bfloat16); superseded by --uplink")
+    ap.add_argument("--uplink", default="float32", choices=list(UPLINK_SCHEMES),
+                    help="pseudo-gradient uplink codec: float32 (identity), bf16 "
+                         "stochastic-rounding cast, per-tensor int8, or top-k "
+                         "sparsification with per-client error feedback")
+    ap.add_argument("--topk-fraction", type=float, default=0.05,
+                    help="--uplink topk: fraction of entries kept")
     ap.add_argument("--fused-server", action="store_true",
                     help="server step as one fused pass over the flat (C, N) delta "
-                         "buffer: the CUDA server_apply kernel on the card")
+                         "buffer, and the flat-buffer uplink codecs: CUDA kernels on "
+                         "the card")
     ap.add_argument("--participation", default="uniform",
                     choices=["uniform", "dirichlet", "markov"])
     ap.add_argument("--dirichlet-alpha", type=float, default=0.3)
@@ -105,16 +116,16 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     if args.aggregation != "sync":
         raise SystemExit("--aggregation async is not ported yet (ROADMAP.md queue A)")
-    if args.uplink != "float32":
-        raise SystemExit(
-            f"--uplink {args.uplink} is not ported yet: the codecs come with the "
-            f"next slice (ROADMAP.md queue A)"
-        )
     if args.pseudo_grad_dtype not in ("float32", "bfloat16"):
         raise SystemExit(f"--pseudo-grad-dtype {args.pseudo_grad_dtype!r}: float32 or bfloat16")
+    if args.uplink != "float32" and args.pseudo_grad_dtype != "float32":
+        raise SystemExit(
+            "--uplink and the legacy --pseudo-grad-dtype are mutually exclusive: "
+            "the codec already defines the wire format"
+        )
 
 
-def _resume(args, agg, fed, params, streams, ckpt):
+def _resume(args, agg, fed, pcfg, params, codec, streams, ckpt):
     """Adopt the newest complete checkpoint; returns the next round to run."""
     latest = ckpt.latest_round()
     if latest is None:
@@ -123,7 +134,7 @@ def _resume(args, agg, fed, params, streams, ckpt):
     extra = manifest.get("extra", {})
     agg_man = extra.get("aggregator")
     if agg_man is not None:
-        for key in ("control", "robust", "uplink_ids"):
+        for key in ("control", "robust"):
             if key in agg_man:
                 raise SystemExit(
                     f"--resume: checkpoint round {latest} carries {key!r} state, "
@@ -134,18 +145,28 @@ def _resume(args, agg, fed, params, streams, ckpt):
         except ValueError as e:
             raise SystemExit(f"--resume: {e}")
     ckpt_uplink = extra.get("args", {}).get("uplink", "float32")
-    if ckpt_uplink != "float32":
+    if get_codec(ckpt_uplink).stateful and not (codec is not None and codec.stateful):
+        # load_pytree ignores npz keys the template lacks: without this check
+        # the clients' accumulated residual mass would be dropped silently
         raise SystemExit(
             f"--resume: checkpoint round {latest} was written with --uplink "
-            f"{ckpt_uplink}, which is not ported yet (ROADMAP.md)"
+            f"{ckpt_uplink} and carries per-client error-feedback residuals; resuming "
+            f"with --uplink {args.uplink} would discard them — use the original codec "
+            f"or start fresh"
         )
-    like = SyncAggregator.checkpoint_template(fed, params)
+    # the residual lane is sized by the manifest's id list (sparse) or the
+    # population (legacy dense): nothing population-sized is allocated here
+    like = SyncAggregator.checkpoint_template(
+        fed, pcfg, params, codec,
+        uplink_ids=agg_man.get("uplink_ids") if isinstance(agg_man, dict) else None,
+    )
     try:
         state, _ = ckpt.load_server(latest, like)
     except KeyError as e:
         raise SystemExit(
             f"--resume: checkpoint round {latest} does not carry the state this "
-            f"run needs (missing {e}); resume with the original --outer/--keep-opt"
+            f"run needs (missing {e}); resume with the original --outer/--keep-opt, "
+            f"and error-feedback residuals only round-trip with the same --uplink codec"
         )
     agg.restore(state, agg_man)
     for i, s in enumerate(streams):
@@ -201,13 +222,17 @@ def run(args, cfg=None) -> dict:
     )
     val_stream = validation_stream(args.seq_len, cfg.vocab_size, args.heterogeneous)
     params = model.init(args.seed, device=device)
+    codec = (get_codec(args.uplink, args.topk_fraction, fused=args.fused_server)
+             if args.uplink != "float32" else None)
 
     agg = SyncAggregator(
         model.loss, fed, pcfg, seed=args.seed, partial_progress=args.partial_progress,
         fused_server=args.fused_server, params=params, rng=prng_key(args.seed + 1),
+        codec=codec,
     )
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    start_round = _resume(args, agg, fed, params, streams, ckpt) if ckpt and args.resume else 0
+    start_round = (_resume(args, agg, fed, pcfg, params, codec, streams, ckpt)
+                   if ckpt and args.resume else 0)
     logger = MetricLogger(args.log) if args.log else None
 
     history = []
@@ -227,7 +252,8 @@ def run(args, cfg=None) -> dict:
             train_ppl=perplexity(metrics["train_loss"]),
             **participation_metrics(plan),
             **partial_progress_metrics(plan, args.local_steps),
-            **uplink_round_metrics(params, plan.effective_k),
+            **uplink_round_metrics(args.uplink, params, plan.effective_k,
+                                   args.topk_fraction, codec=codec),
         )
         val_ppl = evaluate_perplexity(
             model, agg.state["params"], val_stream, batches=args.eval_batches,

@@ -1,6 +1,6 @@
 """Federated training monitors, the ported part of ``repro.metrics.fedmetrics``:
-perplexity, held-out evaluation, the per-round participation and
-partial-progress rows, the float32 uplink cost row and the CSV logger."""
+perplexity, held-out evaluation, the per-round participation,
+partial-progress and uplink-cost rows, and the CSV logger."""
 from __future__ import annotations
 
 import csv
@@ -12,7 +12,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_leaves
 
 
 def perplexity(loss_ce: float) -> float:
@@ -61,14 +60,23 @@ def partial_progress_metrics(plan, tau: int) -> Dict[str, float]:
     }
 
 
-def uplink_round_metrics(params_like, n_uploads: float) -> Dict[str, float]:
-    """Per-round uplink cost of the float32 uplink (the only one ported): four
-    bytes per parameter per upload, compression ratio 1."""
-    per_client = 4.0 * sum(x.numel() for x in tree_leaves(params_like))
+def uplink_round_metrics(
+    scheme: str, params_like, n_uploads: float, topk_fraction: float = 0.05, codec=None,
+) -> Dict[str, float]:
+    """Per-round uplink cost row: bytes one client sends under ``scheme``, bytes
+    the round's ``n_uploads`` uploads cost, and the compression ratio against
+    the float32 uplink. Pass the run's ``codec`` when there is one: the fused
+    top-k prices ONE global kept-entry budget, not per-leaf budgets, and the
+    logged bytes follow what that codec ships."""
+    from repro_torch.core.compression import uplink_bytes
+
+    per_client = (float(codec.nbytes(params_like)) if codec is not None
+                  else uplink_bytes(params_like, scheme, topk_fraction))
+    f32 = uplink_bytes(params_like, "float32")
     return {
-        "uplink_bytes_per_client": per_client,
-        "uplink_bytes_round": per_client * float(n_uploads),
-        "uplink_compression_ratio": 1.0,
+        "uplink_bytes_per_client": float(per_client),
+        "uplink_bytes_round": float(per_client) * float(n_uploads),
+        "uplink_compression_ratio": float(f32) / max(float(per_client), 1e-12),
     }
 
 

@@ -73,6 +73,14 @@ def tree_map(fn: Callable, tree, *rest):
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
 
 
+def tree_stack(trees):
+    """Trees of one structure stacked leaf by leaf along a new leading axis."""
+    leaves, treedef = tree_flatten(trees[0])
+    cols = [tree_leaves(t) for t in trees]
+    return tree_unflatten(treedef, [torch.stack([c[i] for c in cols])
+                                    for i in range(len(leaves))])
+
+
 def flatten_with_paths(tree) -> List[Tuple[str, Any]]:
     """``[(keystr, leaf)]`` in flatten order, keystr as ``jax.tree_util.keystr``."""
     out: List[Tuple[str, Any]] = []

@@ -120,7 +120,8 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         (d.t().contiguous().t(), wn, p, [], "fedavg", None, None),  # not contiguous
         (d, wn, p, [p], "fedavg", None, None),  # lanes count
         (d, wn, p, [p, p], "fedadam", None, None),  # missing bias corrections
-        (torch.zeros((33, 64)), torch.zeros(33), p, [], "fedavg", None, None),  # cohort
+        (d, wn[:3], p, [], "fedavg", None, None),  # one weight per client
+        (d[:0], wn[:0], p, [], "fedavg", None, None),  # no clients
         (d, wn, p, [], "fedsgd", None, None),  # unknown optimizer
     ]
     for args in bad:

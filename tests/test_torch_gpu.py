@@ -1,9 +1,12 @@
-"""The CUDA ``server_apply`` kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``: each test skips where torch sees no CUDA device. On a machine
 with one, run ``python -m pytest -q -m gpu tests/test_torch_gpu.py`` (builds the
-kernel with nvcc first). Tolerances as in ``chip_smoke.py``: params and lanes
-abs 1e-6·max(1, max|p|), norms rel 1e-5, and two launches bitwise equal.
+kernels with nvcc first). ``server_apply``, as in ``chip_smoke.py``: params and
+lanes abs 1e-6·max(1, max|p|), norms rel 1e-5, and two launches bitwise
+equal, for cohorts up to 64 clients (chunks of 32). The four codec kernels:
+bitwise equal to their plain versions, ties, signed zeros, half-quanta and
+non-finite values included.
 """
 import numpy as np
 import pytest
@@ -37,7 +40,7 @@ def _inputs(opt, c, n, seed):
 
 
 @pytest.mark.parametrize("opt", ["fedavg", "fedmom", "fedadam"])
-@pytest.mark.parametrize("c", [1, 4, 5, 32])
+@pytest.mark.parametrize("c", [1, 4, 5, 32, 40, 64])
 @pytest.mark.parametrize("with_noise", [False, True], ids=["clean", "noise"])
 def test_cuda_server_apply_matches_plain(opt, c, with_noise):
     _need_cuda()
@@ -68,9 +71,9 @@ def test_cuda_wrapper_refuses_instead_of_falling_back():
     before = K.server_apply.launches
     with pytest.raises(ValueError):
         K.server_apply(d, wn, p.to(torch.bfloat16), [], opt="fedavg", lr=1.0)
-    with pytest.raises(ValueError):
-        K.server_apply(torch.zeros((33, 8192), device="cuda"), torch.zeros(33, device="cuda"),
-                       p, [], opt="fedavg", lr=1.0)
+    with pytest.raises(ValueError):  # Np not a multiple of 4
+        K.server_apply(d[:, :8190].contiguous(), wn, p[:8190].contiguous(), [],
+                       opt="fedavg", lr=1.0)
     assert K.server_apply.launches == before
 
 
@@ -88,3 +91,145 @@ def test_fused_apply_aggregate_on_cuda_launches_the_kernel():
     assert K.server_apply.launches == before + 1
     assert new_state["params"]["a"].shape == (7, 5)
     assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+
+
+# ---------------------------------------------------------------------------
+# The uplink codec kernels
+# ---------------------------------------------------------------------------
+
+C_CODEC, N_CODEC = 3, 8192 * 5  # several rows, grid strides
+
+
+def _specials():
+    """Values the codecs must get right bit for bit: signed zeros, ±inf, NaNs
+    (one with payload only in the low 16 bits), the largest float, tiny
+    subnormals."""
+    bits = np.asarray([0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000,
+                       0xFFC00001, 0x7F800001, 0x7F7FFFFF, 0xFF7FFFFF, 0x00000001,
+                       0x807FFFFF, 0x3F808000, 0xBF808000, 0x3F80FFFF, 0x7F80FFFF,
+                       0xFFFFFFFF], np.uint32)
+    return torch.from_numpy(bits.view(np.float32).copy())
+
+
+def test_cuda_topk_mask_ef_matches_plain_bitwise():
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xf = torch.randn((C_CODEC, N_CODEC), generator=gen, device="cuda")
+    xf[:, :64] = torch.round(xf[:, :64] * 4) / 4  # many exact ties
+    xf[0, 64:80] = _specials().cuda()
+    xf[1, 100] = -0.0
+    # the thresholds sit on tied values, so ties are kept and dropped alike
+    thresh = torch.stack([torch.tensor(0.75, device="cuda"), xf[1, :64].abs().max(),
+                          torch.tensor(0.0, device="cuda")]).float()
+    before = K.topk_mask_ef.launches
+    kept, resid = K.topk_mask_ef(xf, thresh)
+    torch.cuda.synchronize()
+    assert K.topk_mask_ef.launches == before + 1
+    kp, rp = K.topk_mask_ef_plain(xf, thresh)
+    assert torch.equal(kept.view(torch.int32), kp.view(torch.int32))
+    assert torch.equal(resid.view(torch.int32), rp.view(torch.int32))
+
+
+def test_cuda_sr_bf16_matches_plain_bitwise():
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((C_CODEC, N_CODEC), generator=gen, device="cuda")
+    x[0, :16] = _specials().cuda()
+    noise = torch.randint(0, 1 << 16, x.shape, generator=gen, device="cuda", dtype=torch.int32)
+    noise[0, :4] = 0xFFFF  # carries into the high half
+    before = K.sr_bf16.launches
+    out = K.sr_bf16(x, noise)
+    torch.cuda.synchronize()
+    assert K.sr_bf16.launches == before + 1
+    assert torch.equal(out.view(torch.int16), K.sr_bf16_plain(x, noise).view(torch.int16))
+
+
+def _int8_case(gen):
+    # leaves of ragged sizes (offsets not multiples of 4) and a padded tail
+    offsets = (0, 5, 4101, 4102, 12000, 30001)
+    x = torch.randn((C_CODEC, N_CODEC), generator=gen, device="cuda")
+    x[:, offsets[-1]:] = 0.0
+    scales = torch.rand((C_CODEC, len(offsets) - 1), generator=gen, device="cuda") + 0.1
+    # exact half-quanta: round half to even decides
+    x[:, 5:133] = scales[:, 1:2] * (torch.arange(128, device="cuda") - 63.5)
+    x[2, 7] = float("nan")
+    x[2, 8] = float("inf")
+    return x, scales, offsets
+
+
+def test_cuda_int8_quant_and_dequant_match_plain_bitwise():
+    _need_cuda()
+    x, scales, offsets = _int8_case(torch.Generator(device="cuda").manual_seed(3))
+    q0, d0 = K.int8_quant.launches, K.int8_dequant.launches
+    q = K.int8_quant(x, scales, offsets)
+    out = K.int8_dequant(q, scales, offsets)
+    torch.cuda.synchronize()
+    assert (K.int8_quant.launches, K.int8_dequant.launches) == (q0 + 1, d0 + 1)
+    assert torch.equal(q, K.int8_quant_plain(x, scales, offsets))
+    assert torch.equal(out.view(torch.int32),
+                       K.int8_dequant_plain(q, scales, offsets).view(torch.int32))
+
+
+def test_cuda_codec_wrappers_refuse_instead_of_falling_back():
+    _need_cuda()
+    x = torch.randn((2, 64), device="cuda")
+    t = torch.ones(2, device="cuda")
+    s = torch.ones((2, 1), device="cuda")
+    z = torch.zeros((2, 64), dtype=torch.int32, device="cuda")
+    counts = {n: f.launches for n, f in K.KERNELS.items()}
+    bad = [
+        lambda: K.topk_mask_ef(x.double(), t),  # dtype
+        lambda: K.topk_mask_ef(x, t[:1]),  # threshold per row
+        lambda: K.topk_mask_ef(x[:, :62].contiguous(), t),  # row length % 4
+        lambda: K.topk_mask_ef(x.t().contiguous().t(), t),  # not contiguous
+        lambda: K.topk_mask_ef(x, t.cpu()),  # mixed devices
+        lambda: K.sr_bf16(x, z.long()),  # noise dtype
+        lambda: K.sr_bf16(x[:, 1:61], z[:, 1:61]),  # not contiguous / misaligned
+        lambda: K.int8_quant(x, s, (0, 65)),  # offsets past the row
+        lambda: K.int8_quant(x, s[:, :0], (0,)),  # no leaves
+        lambda: K.int8_dequant(x, s, (0, 64)),  # q must be int8
+        lambda: K.int8_quant(x[:, :62].contiguous(), s, (0, 62)),  # row length % 4
+    ]
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
+    assert counts == {n: f.launches for n, f in K.KERNELS.items()}
+
+
+@pytest.mark.parametrize("scheme", ["topk", "bf16", "int8"])
+def test_fused_codecs_on_cuda_launch_the_kernels_and_match_the_cpu(scheme):
+    _need_cuda()
+    from repro_torch.core.compression import get_codec, init_error_feedback
+    from repro_torch.core.federated import uplink_keys
+    from repro_torch.tree import tree_leaves, tree_map
+
+    codec = get_codec(scheme, 0.1, fused=True)
+    gen = torch.Generator().manual_seed(4)
+    deltas = {"a": torch.randn(3, 7, 5, generator=gen),
+              "b": [torch.randn(3, 33, generator=gen), torch.randn(3, 2, 2, generator=gen)]}
+    res = tree_map(lambda x: 0.1 * x, init_error_feedback(deltas)) if codec.stateful else None
+    rngs = uplink_keys({"rng": np.asarray([0, 5], np.uint32), "round": 1}, 3)
+    if codec.needs_rng:  # the same bits on both devices
+        noise = codec.cohort_noise(tree_leaves(deltas), rngs)
+        codec.cohort_noise = lambda leaves, rngs: [z.to(leaves[0].device) for z in noise]
+    else:
+        rngs = None
+    cpu = codec.encode_cohort(deltas, res, rngs)
+    on = lambda t: tree_map(lambda x: x.cuda(), t) if t is not None else None  # noqa: E731
+    counts = {n: f.launches for n, f in K.KERNELS.items()}
+    gpu = codec.encode_cohort(on(deltas), on(res), rngs)
+    dec = codec.decode_cohort(gpu[0])
+    torch.cuda.synchronize()
+    launched = {n for n, f in K.KERNELS.items() if f.launches != counts[n]}
+    want = {"topk": {"topk_mask_ef"}, "bf16": {"sr_bf16"},
+            "int8": {"int8_quant", "int8_dequant"}}[scheme]
+    assert launched == want
+    for a, b in zip(tree_leaves([cpu[0], cpu[1] or []]), tree_leaves([gpu[0], gpu[1] or []])):
+        assert torch.equal(_bits(a), _bits(b.cpu()))
+    for a, b in zip(tree_leaves(codec.decode_cohort(cpu[0])), tree_leaves(dec)):
+        assert torch.equal(_bits(a), _bits(b.cpu()))
+
+
+def _bits(t):
+    """The tensor's bit patterns (so -0.0 and +0.0, and NaN payloads, differ)."""
+    return t.view({4: torch.int32, 2: torch.int16, 1: torch.int8}[t.element_size()])

@@ -1,5 +1,10 @@
 """Shared helpers of the PyTorch port's parity tests (``tests/test_torch_*.py``).
 
+Run as a script, it prints the measured model and server-step parity errors
+(``python tests/torch_parity.py``), or compares one client's fused top-k
+encode at photon-75m's full width in both packages
+(``python tests/torch_parity.py --topk-full-width``, about 4 GiB of host memory).
+
 Each test builds its inputs with numpy from a seed and feeds the same values to
 the JAX package and to ``repro_torch``; JAX trees cross over as
 ``{keystr: ndarray}`` (the checkpoint's own flattening), so a carried weight
@@ -132,5 +137,81 @@ def _report() -> None:
               f"norms max rel err {float(np.max(np.abs(norms_t - norms_j) / norms_j)):.3e}")
 
 
+def _topk_full_width(k_fraction: float = 0.05, seed: int = 0) -> None:
+    """One client's ``--fused-server`` top-k encode at photon-75m's full
+    width (74,100,992 entries, one global budget) in both packages, on the
+    same delta and residual, compared bit for bit, with where each package's
+    budget went, leaf by leaf. Only the codec runs at full width, not the
+    model: the delta is drawn with numpy from ``seed`` with a scale per leaf
+    (10⁻⁴ to 10⁻², log-uniform), most embedding rows exactly zero (the
+    tokens a client's round never saw), and half of every leaf on a grid of
+    1/64 of its scale, which makes ties at the threshold. The reference runs
+    its plain chain (bitwise its Pallas kernel, ``tests/test_torch_codecs.py``)."""
+    import resource
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as j_cfg
+    from repro.kernels.fedcore import FusedTopKCodec as JFusedTopK
+    from repro.models import build_model as j_build
+    from repro_torch.kernels.fedcore import FusedTopKCodec as TFusedTopK
+    from repro_torch.tree import params_from_numpy
+
+    cfg = j_cfg("photon-75m")
+    shapes = jax.eval_shape(j_build(cfg).init, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, key):
+        scale = np.float32(10.0 ** rng.uniform(-4, -2))
+        x = rng.standard_normal(shape, dtype=np.float32) * scale
+        flat = x.reshape(-1)
+        half = flat.size // 2
+        flat[:half] = np.round(flat[:half] / scale * 64) * (scale / 64)
+        if key == "['embed']":  # rows of tokens outside a round's B·S·τ = 4096 draws
+            seen = np.zeros(shape[0], bool)
+            seen[rng.integers(0, shape[0], 4096)] = True
+            x[~seen] = 0.0
+        return x
+
+    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    keys = [jax.tree_util.keystr(path) for path, _ in leaves]
+    delta = {k: draw(l.shape, k) for k, (_, l) in zip(keys, leaves)}
+    resid = {k: 0.5 * draw(l.shape, k) for k, (_, l) in zip(keys, leaves)}
+    n = sum(x.size for x in delta.values())
+    k = max(1, int(n * k_fraction))
+    print(f"photon-75m full width: {n:,} entries in {len(keys)} leaves, "
+          f"k = {k:,} ({k_fraction})")
+
+    treedef = jax.tree_util.tree_structure(shapes)
+    j_tree = lambda d: jax.tree_util.tree_unflatten(treedef, [jnp.asarray(d[k]) for k in keys])  # noqa: E731
+    t0 = time.perf_counter()
+    jp, jr = JFusedTopK(k_fraction=k_fraction, use_pallas=False).encode(j_tree(delta),
+                                                                        j_tree(resid))
+    jp, jr = jax_flat(jp), jax_flat(jr)
+    t1 = time.perf_counter()
+    tp, tr = TFusedTopK(k_fraction=k_fraction).encode(params_from_numpy(delta, "cpu"),
+                                                      params_from_numpy(resid, "cpu"))
+    tp, tr = torch_flat(tp), torch_flat(tr)
+    t2 = time.perf_counter()
+    differ = sum(int(np.count_nonzero(tp[key].view(np.uint32) != jp[key].view(np.uint32))
+                     + np.count_nonzero(tr[key].view(np.uint32) != jr[key].view(np.uint32)))
+                 for key in keys)
+    kept_t = {key: int(np.count_nonzero(tp[key])) for key in keys}
+    kept_j = {key: int(np.count_nonzero(jp[key])) for key in keys}
+    thresh = min(float(np.abs(v[v != 0]).min()) for v in tp.values() if np.any(v))
+    print(f"entries whose bits differ (payload + residual): {differ}; kept "
+          f"{sum(kept_t.values()):,} (reference {sum(kept_j.values()):,}), threshold "
+          f"{thresh:.9e}; reference {t1 - t0:.1f} s, port {t2 - t1:.1f} s on this host's "
+          f"CPU; peak RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB")
+    for key in keys:
+        print(f"  {key}: {delta[key].size:,} entries, kept {kept_t[key]:,} "
+              f"({kept_t[key] / delta[key].size:.4%}), reference {kept_j[key]:,}")
+    assert differ == 0 and kept_t == kept_j
+
+
 if __name__ == "__main__":
-    _report()
+    import sys
+
+    _topk_full_width() if "--topk-full-width" in sys.argv[1:] else _report()
