@@ -8,8 +8,8 @@ Run from the repository root on a machine with an H100:
 Phases, one JSON line each:
 
   env           torch/CUDA versions and the card's name and power limit
-  build         compiles every CUDA source of the port from ``src/repro_torch/csrc``,
-                one nvcc each, all at once
+  build         compiles every CUDA source of the port from ``src/repro_torch/csrc``
+                (the two fedcore sources and ssd_scan.cu), one nvcc each, all at once
   server_apply  the fused server-step kernel against its plain PyTorch version at
                 photon-75m's flat size (Np = 74,104,832, C = 4) for FedAvg,
                 FedMom and FedAdam, with and without DP noise, and FedAvg at
@@ -19,12 +19,28 @@ Phases, one JSON line each:
                 each uplink codec kernel at Np = 74,104,832, C = 4, bitwise
                 against its plain version: kernel / plain / bound times, GB/s;
                 the top-k phase also times the threshold selection
+  ssd_scan      the SSD chunk-scan kernel against its plain version at
+                mamba2-1.3b's full per-layer prefill shape (B = 4, S = 2048,
+                nh = 64, hd = 64, G = 1, ds = 128, chunk = 64, bf16), from a
+                nonzero state, and at S = 2000 through ``ops.ssd``'s padding
   check         a reduced photon round on the card agrees with the same round on
-                the CPU (float32 compute), with the float32 and the top-k uplink
+                the CPU (float32 compute), with the float32 and the top-k uplink;
+                reduced mamba2-1.3b and photon-75m ``generate`` (float32,
+                use_pallas) give the same tokens on the card and on the CPU
   train         ``repro_torch.launch.train --arch photon-75m --fused-server``
                 for two rounds at full width on the card, with ``--uplink``
                 float32, topk, bf16 and int8; the kernel launch counts are
                 zeroed just before each and read just after
+  serve         full-width mamba2-1.3b (48 layers, random weights from seed 0):
+                ``Model.prefill(use_pallas=True)`` at B = 4, S = 2048 against
+                ``use_pallas=False`` on the card (float32 compute: held to a
+                tolerance; bf16: reported), then ``generate(use_pallas=True)``
+                with 16 new tokens, exactly 48 ssd_scan launches per prefill and
+                none per decode step; then full-width photon-75m ``generate`` at
+                B = 4, prompt 512, 16 new tokens, with no kernel launched.
+                Prefill seconds, decode tokens/s, peak device memory, and a
+                torch.profiler breakdown of one prefill and one decode step
+                (device time by kernel, the device's busy share)
   kernels       one line {"kernels": [...]} with every kernel's numbers
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -45,6 +61,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+#: mamba2-1.3b's per-layer prefill shape in the ssd_scan phase and the serve phase
+SSD_SHAPE = dict(B=4, S=2048, nh=64, hd=64, G=1, ds=128, chunk=64)
+SSD_RAGGED_S = 2000  # not a multiple of the chunk: ops.ssd pads it
+SERVE_BATCH, SERVE_GEN, PHOTON_PROMPT = 4, 16, 512
+MAMBA2_LAYERS = 48
 NP_PHOTON_75M = 74_104_832  # photon-75m's 74,100,992 params padded to 8192-blocks
 COHORT = 4
 WIDE_COHORT = 40  # more clients than one server_apply launch holds (32)
@@ -93,11 +114,28 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_build() -> dict:
+def all_kernels() -> dict:
+    """Every kernel wrapper of the port, by name (each counts its launches)."""
     from repro_torch.kernels.fedcore import kernel as K
+    from repro_torch.kernels.ssd_scan import kernel as SK
+
+    return {**K.KERNELS, **SK.KERNELS}
+
+
+def zero_launches() -> None:
+    for fn in all_kernels().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in all_kernels().items()}
+
+
+def phase_build() -> dict:
+    from repro_torch.kernels import build as KB
 
     t0 = time.perf_counter()
-    built = K.build_all()
+    built = KB.build_all()
     seconds = time.perf_counter() - t0
     for source, (path, log) in built.items():
         ptxas = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
@@ -310,7 +348,6 @@ TRAIN_KERNELS = {
 
 def phase_train(uplink: str) -> dict:
     import torch
-    from repro_torch.kernels.fedcore import kernel as K
     from repro_torch.launch import train as T
     from repro_torch.tree import tree_leaves
 
@@ -318,13 +355,12 @@ def phase_train(uplink: str) -> dict:
                          "--uplink", uplink, "--device", "cuda"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in K.KERNELS.values():
-        fn.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     out = T.run(args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in K.KERNELS.items()}
+    launches = read_launches()
 
     tokens_per_round = args.clients * args.local_steps * args.batch * args.seq_len
     for row in out["history"]:
@@ -354,6 +390,269 @@ def phase_train(uplink: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The SSD chunk scan and the serving path
+# ---------------------------------------------------------------------------
+
+
+def ssd_bound(B, S, nh, hd, G, ds, chunk, itemsize: int = 2):
+    """(bytes, flops) the chunk scan must move and do: x, Bm, Cm and y in
+    ``itemsize`` bytes, dt, A and both states in f32, each read or written
+    once; the products at 2 flops per multiply-add: C·Bᵀ once per
+    (b, g, chunk), since it does not depend on the head, and per (b, h, chunk)
+    (C·Bᵀ∘L)·dx, C·Sᵀ and the state update. L is zero above the diagonal, so
+    both intra-chunk products count only the entries j ≤ i."""
+    nbytes = itemsize * (2 * B * nh * S * hd + 2 * B * G * S * ds) \
+        + 4 * (B * nh * S + nh + 2 * B * nh * hd * ds)
+    tri = chunk * (chunk + 1) // 2
+    flops = 2 * (S // chunk) * (B * G * tri * ds + B * nh * (tri * hd + 2 * chunk * hd * ds))
+    return nbytes, flops
+
+
+def ssd_case(S: int, gen, ragged: bool = False) -> dict:
+    """Kernel against plain version on the card at mamba2-1.3b's layer shape.
+    y: |Δ| ≤ 2⁻⁷·|y| + 1e-5·max|y| (one bf16 ulp: both sides sum in f32 in
+    other orders, then round); final state: |Δ| ≤ 1e-5·max|S|."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import kernel as SK, ops
+
+    sh = dict(SSD_SHAPE, S=S)
+    B, nh, hd, G, ds, chunk = (sh[k] for k in ("B", "nh", "hd", "G", "ds", "chunk"))
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    x = rnd(B, S, nh, hd).bfloat16()  # model layout, as ssm_block hands it to ops.ssd
+    dt = F.softplus(rnd(B, S, nh) - 1.0)
+    A = -torch.exp(0.5 * rnd(nh))
+    Bm, Cm = rnd(B, S, G, ds).bfloat16(), rnd(B, S, G, ds).bfloat16()
+    init = 0.1 * rnd(B, nh, hd, ds)
+
+    pad = (-S) % chunk
+    padded = [F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)).movedim(1, 2).contiguous()
+              for t in (x, dt, Bm, Cm)]
+    args = (padded[0], padded[1], A, padded[2], padded[3], init)
+    if ragged:
+        run = lambda: ops.ssd(x, dt, A, Bm, Cm, chunk, init)  # noqa: E731
+        got = run()
+        got = (got[0].movedim(1, 2), got[1])
+    else:
+        run = lambda: SK.ssd_scan_fwd(*args, chunk=chunk)  # noqa: E731
+        got = run()
+    want = SK.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    y, y0 = got[0].float(), want[0][:, :, :S].float()
+    y_err = float((y - y0).abs().max())
+    y_units = float(((y - y0).abs() / (2.0 ** -7 * y0.abs() + 1e-5 * y0.abs().max())).max())
+    s_err = float((got[1] - want[1]).abs().max())
+    s_units = s_err / (1e-5 * float(want[1].abs().max()))
+    r = {"S": S, "padded_S": S + pad, "path": "ops.ssd" if ragged else "ssd_scan_fwd",
+         "max_abs_err_y": y_err, "y_err_in_tolerance_units": y_units,
+         "max_abs_err_state": s_err, "state_err_in_tolerance_units": s_units,
+         "max_abs_y": float(y0.abs().max()), "max_abs_state": float(want[1].abs().max())}
+    assert y_units <= 1.0 and s_units <= 1.0, r
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(got[1]).all()), r
+    if not ragged:
+        nbytes, flops = ssd_bound(B, S, nh, hd, G, ds, chunk)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_OPS_PER_S * 1e3
+        kernel_ms = time_ms(run, reps=20, warmup=3)
+        r.update(kernel_ms=kernel_ms,
+                 plain_ms=time_ms(lambda: SK.ssd_scan_plain(*args, chunk=chunk), reps=3),
+                 bytes=nbytes, flops=flops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                 bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 kernel_TFLOPs=flops / (kernel_ms * 1e-3) / 1e12, library_ms=None)
+    emit("ssd_scan", **r)
+    return r
+
+
+def phase_ssd_scan() -> dict:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    full = ssd_case(SSD_SHAPE["S"], gen)
+    ssd_case(SSD_RAGGED_S, gen, ragged=True)
+    torch.cuda.empty_cache()
+    return full
+
+
+def phase_serve_check() -> None:
+    """Reduced mamba2-1.3b and photon-75m serve the same greedy tokens on the
+    card (the SSD kernel under use_pallas) and on the CPU (its plain version),
+    float32 compute, the same seed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    for arch in ("mamba2-1.3b", "photon-75m"):
+        cfg = dataclasses.replace(get_config(arch).reduced(), compute_dtype="float32")
+        model = build_model(cfg)
+        gen = torch.Generator().manual_seed(3)
+        prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen, dtype=torch.int32)
+        out = {dev: generate(model, model.init(0, device=dev), prompt.to(dev), 8,
+                             use_pallas=True).cpu() for dev in ("cpu", "cuda")}
+        same = bool(torch.equal(out["cpu"], out["cuda"]))
+        emit("check", serve=arch, tokens_cuda=out["cuda"][:, 40:].tolist(),
+             tokens_cpu=out["cpu"][:, 40:].tolist(), same=same)
+        assert same, arch
+
+
+def profile_device(fn) -> dict:
+    """Device time of one call of ``fn`` under ``torch.profiler``, by kernel
+    name (the eight longest), with the call's wall time under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}  # kernel names cut to 90 characters; kernels that share those add up
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ms": sum(by_name.values()), "profiled_wall_ms": wall_ms,
+            "top_kernels_ms": dict(top)}
+
+
+def _serve(model, params, prompt, use_pallas: bool) -> dict:
+    """``generate`` as a user calls it (the launch counts zeroed just before,
+    read just after), then its two parts timed apart: one prefill, and the
+    decode steps from that prefill's cache."""
+    import torch
+    from repro_torch.launch.serve import generate, merge
+
+    B, S0 = prompt.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = generate(model, params, prompt, SERVE_GEN, use_pallas=use_pallas)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    zero_launches()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompt}, use_pallas=use_pallas)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = read_launches()
+    cache = merge(model.init_cache(B, S0 + SERVE_GEN, device=prompt.device), cache)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    zero_launches()
+    t0 = time.perf_counter()
+    for i in range(SERVE_GEN - 1):
+        logits, cache = model.decode_step(params, cache, tok, S0 + i, use_pallas=use_pallas)
+        tok = torch.argmax(logits[:, 0], -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = read_launches()
+    assert tuple(out.shape) == (B, S0 + SERVE_GEN), out.shape
+    assert bool(((out >= 0) & (out < model.cfg.vocab_size)).all())
+    assert bool(torch.isfinite(logits).all())
+
+    # where the time goes: device time per kernel, and the device's busy share
+    # of the unprofiled wall time (prefill; one decode step)
+    prof_prefill = profile_device(
+        lambda: model.prefill(params, {"tokens": prompt}, use_pallas=use_pallas))
+    prof_decode = profile_device(
+        lambda: model.decode_step(params, cache, tok, S0 + SERVE_GEN - 1, use_pallas=use_pallas))
+    step_ms = decode_s / (SERVE_GEN - 1) * 1e3
+    return {"generate_s": generate_s, "prefill_s": prefill_s, "decode_s": decode_s,
+            "prefill_tokens_per_s": B * S0 / prefill_s,
+            "decode_tokens_per_s": B * (SERVE_GEN - 1) / decode_s, "decode_step_ms": step_ms,
+            "peak_mem_GB": peak, "launches": launches, "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches, "sample": out[0, S0:].tolist(),
+            "prefill_device_busy_share": prof_prefill["device_ms"] / (prefill_s * 1e3),
+            "decode_device_busy_share": prof_decode["device_ms"] / step_ms,
+            "prefill_profile": prof_prefill, "decode_step_profile": prof_decode}
+
+
+def phase_serve_mamba2() -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("mamba2-1.3b")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    assert cfg.n_layers == MAMBA2_LAYERS and cfg.d_model == 2048
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(0, device="cuda")
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SSD_SHAPE["S"]), generator=gen,
+                           dtype=torch.int32).cuda()
+    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_params=n_params, param_count=cfg.param_count(), init_s=init_s)
+
+    # use_pallas against the plain path on the card, float32 then bf16 compute
+    for c in (cfg32, cfg):
+        model = build_model(c)
+        lk, ck = model.prefill(params, {"tokens": prompt}, use_pallas=True)
+        lp, cp = model.prefill(params, {"tokens": prompt}, use_pallas=False)
+        torch.cuda.synchronize()
+        scale = float(lp.float().abs().max())
+        logit_err = float((lk.float() - lp.float()).abs().max())
+        cache_err = {}
+        for name in ("conv", "ssd"):
+            a, b = ck[0]["pos0"]["mixer"][name].float(), cp[0]["pos0"]["mixer"][name].float()
+            cache_err[name] = float((a - b).abs().max()) / float(b.abs().max())
+        same_tokens = bool(torch.equal(torch.argmax(lk[:, -1], -1), torch.argmax(lp[:, -1], -1)))
+        r = {"compute_dtype": c.compute_dtype, "logits_max_abs_err": logit_err,
+             "logits_max_abs": scale, "logits_rel_err": logit_err / scale,
+             "cache_rel_err": cache_err, "same_greedy_tokens": same_tokens}
+        emit("serve", arch=cfg.name, check="prefill use_pallas vs plain", **r)
+        assert all(math.isfinite(v) for v in (logit_err, *cache_err.values())), r
+        if c.compute_dtype == "float32":
+            # 48 layers of f32 sums that the kernel and the einsum chain may
+            # take in other orders (on the H100 with cuBLAS's f32 GEMMs both
+            # run one FMA chain per output in k order, and they agree bitwise)
+            assert logit_err <= 1e-4 * scale, r
+            assert max(cache_err.values()) <= 1e-4, r
+        del lk, ck, lp, cp
+        torch.cuda.empty_cache()
+
+    model = build_model(cfg)
+    r = _serve(model, params, prompt, use_pallas=True)
+    emit("serve", arch=cfg.name, batch=SERVE_BATCH, prompt=SSD_SHAPE["S"], new_tokens=SERVE_GEN,
+         use_pallas=True, **r)
+    others = {n: 0 for n in r["launches"] if n != "ssd_scan"}
+    assert r["launches"] == {"ssd_scan": MAMBA2_LAYERS, **others}, r["launches"]
+    assert r["prefill_launches"] == {"ssd_scan": MAMBA2_LAYERS, **others}, r
+    assert r["decode_launches"] == {"ssd_scan": 0, **others}, r
+    del params
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_serve_photon() -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("photon-75m")
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PHOTON_PROMPT), generator=gen,
+                           dtype=torch.int32).cuda()
+    r = _serve(model, params, prompt, use_pallas=False)
+    emit("serve", arch=cfg.name, batch=SERVE_BATCH, prompt=PHOTON_PROMPT, new_tokens=SERVE_GEN,
+         use_pallas=False, **r)
+    for launches in (r["launches"], r["prefill_launches"], r["decode_launches"]):
+        assert all(v == 0 for v in launches.values()), launches
+    del params
+    torch.cuda.empty_cache()
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -362,14 +661,21 @@ def main() -> int:
         return 2
     from repro_torch.kernels.fedcore import kernel  # noqa: F401  (fails outside a checkout)
 
+    # float32 products in full float32 (the plain versions' and the checks' numerics)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = gpu_name_and_power()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     phase_build()
     sa = phase_server_apply()
     codecs = phase_codecs()
+    ssd = phase_ssd_scan()
     phase_check()
+    phase_serve_check()
     launches = {uplink: phase_train(uplink) for uplink in TRAIN_KERNELS}
+    mamba2 = phase_serve_mamba2()
+    phase_serve_photon()
 
     main_case = sa[("fedavg", False)]  # the main path: FedAvg, no DP noise, C = 4
     kernels = [{
@@ -395,6 +701,14 @@ def main() -> int:
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "library_note": note,
         })
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:88",
+        "launches": mamba2["launches"]["ssd_scan"], "max_abs_err": ssd["max_abs_err_y"],
+        "ms": ssd["kernel_ms"], "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
+        "bound_by": ssd["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes the SSD chunk scan",
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

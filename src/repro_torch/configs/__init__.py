@@ -1,5 +1,6 @@
 """Config registry: importing this package registers every ported architecture
-(the photon family; other families arrive with their models, ROADMAP.md)."""
+(the photon family and mamba2-1.3b; other families arrive with their models,
+ROADMAP.md)."""
 from repro_torch.configs.base import (  # noqa: F401
     LayerKind,
     ModelConfig,
@@ -7,4 +8,4 @@ from repro_torch.configs.base import (  # noqa: F401
     list_configs,
 )
 
-from repro_torch.configs import photon  # noqa: F401  (registration side effect)
+from repro_torch.configs import mamba2_1_3b, photon  # noqa: F401  (registration side effects)

@@ -18,28 +18,22 @@ buffer ``(C, Np)`` in one launch (the reference launches per client, and for
 int8 per leaf): a (C,) threshold vector for top-k, a (C, leaves) scale table
 with the leaves' offsets for int8. Each is bitwise equal to its plain version.
 
-Each source is compiled with ``nvcc`` at first use into ``build/repro_torch/``
-(named by a hash of the source and flags) and bound with ``ctypes`` through a
-plain C interface. A tensor on the CPU goes to the plain version; a CUDA
-tensor launches the kernel or raises — there is no fallback. Each wrapper
-counts its launches in ``.launches``.
+Each source is compiled at first use by ``kernels/build.py`` and bound with
+``ctypes`` through a plain C interface. A tensor on the CPU goes to the plain
+version; a CUDA tensor launches the kernel or raises — there is no fallback.
+Each wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.compression import quantize_int8, sr_bf16_bits
 from repro_torch.core.outer_opt import OUTER_LANES
+from repro_torch.kernels.build import CSRC, build
 
 OPTS = {"fedavg": 0, "fedmom": 1, "fedadam": 2}
 N_LANES = {name: len(lanes) for name, lanes in OUTER_LANES.items()}
@@ -48,54 +42,8 @@ GRID = 1024  # blocks of the server kernel; fixed, so the reduction order is too
 CODEC_GRID = 8 * 132  # codec kernels' grid cap: 8 blocks of 256 per SM (full occupancy)
 _THREADS = 256
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCE = CSRC / "fedcore_server_apply.cu"
 CODEC_SOURCE = CSRC / "fedcore_codecs.cu"
-SOURCES = (SOURCE, CODEC_SOURCE)
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-# --fmad=false: round every multiply and add on its own, as the plain version's
-# separate torch ops do (FMA contraction would differ from it in the last bit,
-# which FedAdam's division by sqrt(v) can amplify where v is small)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the fedcore kernel")
-
-
-def build(source: Path = SOURCE) -> Tuple[Path, str]:
-    """Compile one kernel library if this source/flags pair has not been built.
-    Returns ``(path, compiler_log)``; the log is empty when it was cached."""
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{source.stem}-{tag}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent builder never loads a partial file
-    return out, proc.stderr
-
-
-def build_all() -> Dict[str, Tuple[Path, str]]:
-    """Build every kernel source at once, one ``nvcc`` each, in parallel."""
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        return dict(zip((s.name for s in SOURCES), pool.map(build, SOURCES)))
 
 
 @functools.lru_cache(maxsize=None)

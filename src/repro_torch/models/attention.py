@@ -1,13 +1,16 @@
-"""Grouped-query self-attention with ALiBi/RoPE, causal and sliding-window masks —
-the train-mode path of ``repro.models.attention``.
+"""Grouped-query self-attention with ALiBi/RoPE, causal and sliding-window
+masks and the KV cache of prefill/decode — ``repro.models.attention`` without
+cross-attention.
 
 The scaled-dot-product core is written in plain einsum/softmax, as the JAX
-reference computes it outside any kernel (its flash kernel is never used with
-ALiBi). The KV cache and cross-attention wait for the serving slice.
+reference computes it outside any kernel. Where the reference would send the
+core to its Pallas flash kernel (``use_pallas`` on a self-attention layer
+without ALiBi, outside decode, with a window that is None or a Python int),
+the port raises: that kernel is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,7 +67,8 @@ def make_mask(
     q_pos: torch.Tensor,  # (Sq,)
     k_pos: torch.Tensor,  # (Sk,)
     causal: bool,
-    window: Optional[int],
+    window,  # None, an int, or a 0-d tensor (a layer's entry of the window array)
+    k_len=None,  # valid KV length for decode (scalar)
 ) -> torch.Tensor:
     """Boolean mask broadcastable to (B, 1, 1, Sq, Sk)."""
     qp = q_pos[None, None, None, :, None]
@@ -75,6 +79,8 @@ def make_mask(
         mask = mask & (kp <= qp)
     if window is not None:
         mask = mask & (qp - kp < window)
+    if k_len is not None:
+        mask = mask & (kp < k_len)
     return mask
 
 
@@ -93,7 +99,8 @@ def sdpa_chunked(
     q_pos: torch.Tensor,  # (Sq,)
     k_pos: torch.Tensor,  # (Sk,)
     causal: bool,
-    window: Optional[int],
+    window,
+    k_len,
     slopes: Optional[torch.Tensor],  # ALiBi (Hq,) or None
     chunk: int = 256,
 ) -> torch.Tensor:
@@ -116,6 +123,8 @@ def sdpa_chunked(
             m = m & (kpc <= qpc)
         if window is not None:
             m = m & ((qpc - kpc) < window)
+        if k_len is not None:
+            m = m & (kpc < k_len)
         if slopes is not None:
             dist = torch.clamp((qpc - kpc).float(), min=0.0)
             s = s - slopes.reshape(1, Hkv, grp, 1, 1) * dist[None, None, None]
@@ -132,9 +141,14 @@ def attention(
     *,
     positions: torch.Tensor,  # (S,) absolute token positions
     causal: bool = True,
-    window: Optional[int] = None,
-) -> torch.Tensor:
-    """Self-attention layer, train mode (no cache)."""
+    window=None,
+    cache: Optional[dict] = None,  # {'k': (B, Smax, Hkv, hd), 'v': ...} decode/prefill
+    cache_index=None,  # scalar write offset for decode
+    use_pallas: bool = False,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Self-attention layer. Returns ``(y, new_cache)``; ``new_cache`` is None
+    without a cache, the computed ``{k, v}`` at prefill, and the cache with
+    this step's entries written at ``cache_index`` at decode."""
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
@@ -147,20 +161,44 @@ def attention(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    k_positions = torch.arange(k.shape[1], device=x.device)
+    new_cache = None
+    if cache is not None:
+        if cache_index is not None and "k" in cache and cache["k"].shape[1] > S:
+            # decode: write S (=1) new entries at cache_index, attend over the full cache
+            i = int(cache_index)
+            ck, cv = cache["k"].clone(), cache["v"].clone()
+            ck[:, i:i + S] = k.to(ck.dtype)
+            cv[:, i:i + S] = v.to(cv.dtype)
+            new_cache = {"k": ck, "v": cv}
+            k, v = ck.to(q.dtype), cv.to(q.dtype)
+        else:
+            # prefill: the cache is exactly the computed k/v
+            new_cache = {"k": k, "v": v}
+
+    Sk = k.shape[1]
+    k_positions = torch.arange(Sk, device=x.device)
+    k_len = None
+    if cache is not None and cache_index is not None and Sk > S:
+        k_len = cache_index + S
     slopes = alibi_slopes(cfg.n_heads, x.device) if cfg.pos_embedding == "alibi" else None
 
+    flash = slopes is None and k_len is None and (window is None or isinstance(window, int))
+    if use_pallas and flash:
+        raise NotImplementedError(
+            "use_pallas on self-attention without ALiBi takes the reference's Pallas "
+            "flash_attention_fwd, which the port has not ported yet (ROADMAP.md queue B)"
+        )
     if S >= 512:
         out = sdpa_chunked(
             q, k, v, q_pos=positions, k_pos=k_positions, causal=causal,
-            window=window, slopes=slopes,
+            window=window, k_len=k_len, slopes=slopes,
         )
     else:
-        mask = make_mask(positions, k_positions, causal, window)
+        mask = make_mask(positions, k_positions, causal, window, k_len)
         bias = None
         if slopes is not None:
             dist = (positions[:, None] - k_positions[None, :]).float()
             bias = (-slopes[:, None, None] * torch.clamp(dist, min=0.0))[None]
         out = sdpa(q, k, v, mask, bias)
 
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), new_cache

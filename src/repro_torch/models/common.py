@@ -23,7 +23,7 @@ from repro_torch.tree import flatten_with_paths, tree_flatten, tree_unflatten
 @dataclass(frozen=True)
 class ParamDesc:
     shape: Tuple[int, ...]
-    init: str = "normal"  # 'normal' | 'zeros' | 'ones' | 'embed'
+    init: str = "normal"  # 'normal' | 'zeros' | 'ones' | 'embed' | 'ssm_a' | 'ssm_dt'
     scale: float = 0.02
 
 
@@ -43,7 +43,13 @@ def _materialize(desc: ParamDesc, gen: torch.Generator, dtype) -> torch.Tensor:
     if desc.init in ("normal", "embed"):
         x = torch.randn(desc.shape, generator=gen, dtype=torch.float32)
         return (desc.scale * x).to(dtype)
-    raise ValueError(f"init {desc.init!r} is not ported yet (ROADMAP.md)")
+    if desc.init == "ssm_a":  # A_log ~ log(Uniform[1, 16])
+        u = torch.rand(desc.shape, generator=gen, dtype=torch.float32)
+        return torch.log(1.0 + 15.0 * u).to(dtype)
+    if desc.init == "ssm_dt":  # dt bias: softplus^-1 of Uniform[1e-3, 1e-1]
+        dt = 1e-3 + (1e-1 - 1e-3) * torch.rand(desc.shape, generator=gen, dtype=torch.float32)
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    raise ValueError(f"unknown init {desc.init!r}")
 
 
 def init_params(seed: int, desc_tree, dtype=torch.float32, device="cpu"):

@@ -3,6 +3,8 @@
     model = Model(cfg)
     params = model.init(seed, device="cuda")
     loss, metrics = model.loss(params, batch)
+    logits, cache = model.prefill(params, batch, use_pallas=True)
+    logits, cache = model.decode_step(params, cache, tokens, cache_index)
 
 The backward pass is autograd over the plain torch ops; the reference has no
 custom VJP on this path either.
@@ -79,7 +81,7 @@ class Model:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token LM loss. batch['tokens'] (B,S); optional batch['loss_mask']."""
         tokens = batch["tokens"].long()
-        h, aux = transformer.forward(self.cfg, params, tokens, logits_mode="hidden")
+        h, _, _ = transformer.forward(self.cfg, params, tokens, logits_mode="hidden")
         labels = torch.cat(
             [tokens[:, 1:], torch.full((tokens.shape[0], 1), -1, dtype=tokens.dtype,
                                        device=tokens.device)], dim=1
@@ -89,6 +91,35 @@ class Model:
         loss, metrics = chunked_cross_entropy(self.cfg, params, h, labels, self.cfg.z_loss)
         metrics["loss"] = loss
         return loss, metrics
+
+    def forward(self, params, batch: Dict[str, torch.Tensor], *, mode: str = "train",
+                cache=None, cache_index=None, use_pallas: bool = False):
+        """``(logits, aux, new_cache)`` of ``transformer.forward``."""
+        return transformer.forward(
+            self.cfg, params, batch["tokens"], mode=mode, cache=cache,
+            cache_index=cache_index, use_pallas=use_pallas,
+        )
+
+    # -- serving ----------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+        return transformer.init_cache(self.cfg, batch, max_len, dtype, device)
+
+    def prefill(self, params, batch, *, use_pallas: bool = False):
+        """Fills the cache; returns next-token logits (last position only — the
+        full (B, S, V) logits tensor is never materialized)."""
+        logits, _, cache = transformer.forward(
+            self.cfg, params, batch["tokens"], mode="prefill", use_pallas=use_pallas,
+            logits_mode="last",
+        )
+        return logits, cache
+
+    def decode_step(self, params, cache, tokens, cache_index, *, use_pallas: bool = False):
+        """tokens: (B, 1) — one new token per sequence; cache_index: its position."""
+        logits, _, new_cache = self.forward(
+            params, {"tokens": tokens}, mode="decode", cache=cache, cache_index=cache_index,
+            use_pallas=use_pallas,
+        )
+        return logits, new_cache
 
 
 def build_model(name_or_cfg) -> Model:

@@ -1,24 +1,32 @@
-"""Pattern-aware transformer engine, train mode — the counterpart of
-``repro.models.transformer``.
+"""Pattern-aware transformer engine — the counterpart of
+``repro.models.transformer`` without MoE and the encoder-decoder.
 
 Layers are grouped into *segments* by ``plan_segments`` exactly as the
 reference groups them: a short prefix plus a periodic body whose parameters
 are stacked on a leading ``layers`` axis. The reference runs the body with
-``lax.scan``; here a Python loop walks the stacked axis. The parameter tree
-therefore has the reference's key paths and shapes leaf for leaf.
+``lax.scan``; here a Python loop walks the stacked axis, and the caches of a
+body are stacked on the same axis. The parameter and cache trees therefore
+have the reference's key paths and shapes leaf for leaf.
+
+Modes: 'train' (no cache), 'prefill' (returns the cache), 'decode' (one token,
+updates the cache).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDesc, apply_norm, norm_desc, stack_descs
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map, tree_stack
+
+WINDOW_SENTINEL = 1 << 30  # "no window": mask (qpos - kpos < sentinel) is always true
 
 
 @dataclass(frozen=True)
@@ -30,6 +38,18 @@ class SegmentPlan:
     @property
     def period(self) -> int:
         return len(self.kinds)
+
+    def window_array(self, all_kinds: List[LayerKind]) -> torch.Tensor:
+        """(n_repeat, period) int32 window per layer (sentinel = full attention).
+        Each layer gets its entry as a 0-d tensor, as the reference's layers
+        get theirs from a jnp array (never a Python int)."""
+        w = np.full((self.n_repeat, self.period), WINDOW_SENTINEL, dtype=np.int64)
+        for r in range(self.n_repeat):
+            for p in range(self.period):
+                k = all_kinds[self.first_layer + r * self.period + p]
+                if k.window is not None:
+                    w[r, p] = k.window
+        return torch.from_numpy(np.minimum(w, WINDOW_SENTINEL).astype(np.int32))
 
 
 def plan_segments(kinds: List[LayerKind], max_period: int = 12) -> List[SegmentPlan]:
@@ -57,17 +77,20 @@ def plan_segments(kinds: List[LayerKind], max_period: int = 12) -> List[SegmentP
 
 
 def _layer_desc(cfg: ModelConfig, kind: LayerKind) -> dict:
-    if kind.mixer != "attn" or kind.cross_attn or kind.ffn != "dense":
+    if kind.cross_attn or kind.ffn == "moe":
         raise NotImplementedError(
-            f"layer kind {kind} is not ported yet: the port has the dense "
-            f"attention decoder only (ROADMAP.md queue A)"
+            f"layer kind {kind} is not ported yet: the port has dense attention and "
+            f"SSM layers without cross-attention or MoE (ROADMAP.md queue A)"
         )
-    return {
-        "norm1": norm_desc(cfg),
-        "mixer": attn_mod.attn_desc(cfg),
-        "norm2": norm_desc(cfg),
-        "ffn": moe_mod.dense_ffn_desc(cfg, cfg.d_ff),
-    }
+    d = {"norm1": norm_desc(cfg)}
+    if kind.mixer == "attn":
+        d["mixer"] = attn_mod.attn_desc(cfg)
+    else:
+        d["mixer"] = ssm_mod.ssm_desc(cfg)
+    if kind.ffn == "dense":
+        d["norm2"] = norm_desc(cfg)
+        d["ffn"] = moe_mod.dense_ffn_desc(cfg, cfg.d_ff)
+    return d
 
 
 def _segment_desc(cfg: ModelConfig, seg: SegmentPlan) -> dict:
@@ -93,13 +116,117 @@ def model_desc(cfg: ModelConfig) -> dict:
     return d
 
 
-def _apply_layer(cfg: ModelConfig, p: dict, h: torch.Tensor, *, window,
-                 positions: torch.Tensor) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# Cache construction
+# ---------------------------------------------------------------------------
+
+
+def _layer_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int, dtype, device):
+    if kind.mixer == "attn":
+        hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        shape = (batch, max_len, hkv, hd)
+        return {"mixer": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    return {"mixer": ssm_mod.empty_ssm_cache(cfg, batch, device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+    """Zero caches in the reference's layout; a stacked body's leaves are
+    expanded views of one layer's zeros (the reference broadcasts them)."""
+    out = []
+    for seg in plan_segments(cfg.layer_kinds()):
+        body = {
+            f"pos{p}": _layer_cache(cfg, k, batch, max_len, dtype, device)
+            for p, k in enumerate(seg.kinds)
+        }
+        if seg.n_repeat > 1:
+            body = tree_map(lambda x: x[None].expand((seg.n_repeat,) + x.shape), body)
+        out.append(body)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Layer / segment application
+# ---------------------------------------------------------------------------
+
+
+def _apply_layer(
+    cfg: ModelConfig,
+    kind: LayerKind,
+    p: dict,
+    h: torch.Tensor,
+    *,
+    window,
+    positions: torch.Tensor,
+    cache: Optional[dict],
+    cache_index,
+    decode: bool,
+    use_pallas: bool,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    new_cache: Dict[str, Any] = {}
     x = apply_norm(cfg, p["norm1"], h)
-    h = h + attn_mod.attention(cfg, p["mixer"], x, positions=positions, causal=True,
-                               window=window)
-    x2 = apply_norm(cfg, p["norm2"], h)
-    return h + moe_mod.dense_ffn(cfg, p["ffn"], x2)
+    mixer_cache = cache.get("mixer") if cache else None
+    if kind.mixer == "attn":
+        a, mc = attn_mod.attention(
+            cfg, p["mixer"], x, positions=positions, causal=True, window=window,
+            cache=mixer_cache, cache_index=cache_index, use_pallas=use_pallas,
+        )
+    else:
+        a, mc = ssm_mod.ssm_block(
+            cfg, p["mixer"], x, cache=mixer_cache, decode=decode, use_pallas=use_pallas
+        )
+    if mc is not None:
+        new_cache["mixer"] = mc
+    h = h + a
+
+    if kind.ffn == "dense":
+        x2 = apply_norm(cfg, p["norm2"], h)
+        h = h + moe_mod.dense_ffn(cfg, p["ffn"], x2)
+    return h, (new_cache if (cache is not None or decode) else None)
+
+
+def _apply_segment(
+    cfg: ModelConfig,
+    seg: SegmentPlan,
+    seg_params: dict,
+    h: torch.Tensor,
+    *,
+    all_kinds: List[LayerKind],
+    positions: torch.Tensor,
+    seg_cache,
+    cache_index,
+    decode: bool,
+    use_pallas: bool,
+):
+    """Runs the body ``n_repeat`` times; returns ``(h, new_cache)`` with the
+    per-repeat caches stacked on a leading axis, as the reference's scan."""
+    windows = seg.window_array(all_kinds)  # (n_repeat, period)
+    new_caches = []
+    for r in range(seg.n_repeat):
+        if seg.n_repeat == 1:
+            params_r, cache_r = seg_params, seg_cache
+        else:
+            params_r = tree_map(lambda x: x[r], seg_params)
+            cache_r = None if seg_cache is None else tree_map(lambda x: x[r], seg_cache)
+        new_cache_r = {}
+        for pidx, kind in enumerate(seg.kinds):
+            key = f"pos{pidx}"
+            h, nc = _apply_layer(
+                cfg, kind, params_r[key], h, window=windows[r, pidx], positions=positions,
+                cache=cache_r.get(key) if cache_r else None, cache_index=cache_index,
+                decode=decode, use_pallas=use_pallas,
+            )
+            if nc is not None:
+                new_cache_r[key] = nc
+        new_caches.append(new_cache_r)
+    if seg.n_repeat == 1:
+        return h, (new_caches[0] or None)
+    return h, tree_stack(new_caches)
+
+
+# ---------------------------------------------------------------------------
+# Public forward
+# ---------------------------------------------------------------------------
 
 
 def forward(
@@ -107,31 +234,50 @@ def forward(
     params: dict,
     tokens: torch.Tensor,  # (B, S) integer
     *,
-    logits_mode: str = "full",  # 'full' | 'hidden' (return pre-head h)
+    mode: str = "train",  # 'train' | 'prefill' | 'decode'
+    cache=None,
+    cache_index=None,  # decode: position of the first new token (an int)
+    use_pallas: bool = False,
+    logits_mode: str = "full",  # 'full' | 'last' | 'hidden' (return pre-head h)
 ):
-    """Train-mode forward. Returns ``(logits (B,S,V) | hidden (B,S,D), aux)``;
-    ``aux`` is the MoE auxiliary loss, 0 for the dense decoder."""
+    """Returns ``(logits (B,S,V) | hidden (B,S,D), aux, new_cache)``; ``aux``
+    is the MoE auxiliary loss, 0 here; ``new_cache`` is None in train mode."""
+    assert mode in ("train", "prefill", "decode")
+    decode = mode == "decode"
     B, S = tokens.shape
     compute_dtype = getattr(torch, cfg.compute_dtype)
     h = params["embed"][tokens.long()].to(compute_dtype)
-    positions = torch.arange(S, device=tokens.device)
+
+    if decode:
+        assert cache_index is not None
+        positions = cache_index + torch.arange(S, device=tokens.device)
+    else:
+        positions = torch.arange(S, device=tokens.device)
 
     all_kinds = cfg.layer_kinds()
-    for seg, seg_params in zip(plan_segments(all_kinds), params["segments"]):
-        for r in range(seg.n_repeat):
-            params_r = (
-                seg_params if seg.n_repeat == 1
-                else tree_map(lambda x: x[r], seg_params)
-            )
-            for pidx, kind in enumerate(seg.kinds):
-                h = _apply_layer(cfg, params_r[f"pos{pidx}"], h, window=kind.window,
-                                 positions=positions)
+    segs = plan_segments(all_kinds)
+    if mode == "prefill" and cache is None:
+        cache = _prefill_placeholder_cache(segs)
+
+    new_cache = [] if (cache is not None or decode) else None
+    for seg, seg_params, seg_cache in zip(
+        segs, params["segments"], cache if cache is not None else [None] * len(segs)
+    ):
+        h, seg_new_cache = _apply_segment(
+            cfg, seg, seg_params, h, all_kinds=all_kinds, positions=positions,
+            seg_cache=seg_cache, cache_index=cache_index, decode=decode,
+            use_pallas=use_pallas,
+        )
+        if new_cache is not None:
+            new_cache.append(seg_new_cache)
 
     h = apply_norm(cfg, params["final_norm"], h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if logits_mode == "hidden":
-        return h, aux
-    return project_logits(cfg, params, h), aux
+        return h, aux, new_cache
+    if logits_mode == "last":
+        h = h[:, -1:]
+    return project_logits(cfg, params, h), aux, new_cache
 
 
 def project_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -142,3 +288,9 @@ def project_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Ten
     if cfg.padded_vocab != cfg.vocab_size:
         logits = logits[..., : cfg.vocab_size]
     return logits
+
+
+def _prefill_placeholder_cache(segs):
+    """Prefill computes the cache from scratch; the placeholder asks each layer
+    to return its cache."""
+    return [{f"pos{p}": {"mixer": {}} for p in range(seg.period)} for seg in segs]

@@ -233,3 +233,111 @@ def test_fused_codecs_on_cuda_launch_the_kernels_and_match_the_cpu(scheme):
 def _bits(t):
     """The tensor's bit patterns (so -0.0 and +0.0, and NaN payloads, differ)."""
     return t.view({4: torch.int32, 2: torch.int16, 1: torch.int8}[t.element_size()])
+
+
+# ---------------------------------------------------------------------------
+# The SSD chunk-scan kernel
+# ---------------------------------------------------------------------------
+
+#: (B, S, nh, hd, G, ds, chunk): small shapes with ragged tiles and groups, the
+#: reduced mamba2-1.3b layer and mamba2-1.3b's full prefill layer
+SSD_SHAPES = [
+    (1, 64, 2, 32, 1, 16, 16),
+    (2, 96, 4, 32, 2, 32, 32),
+    (2, 64, 16, 32, 1, 32, 16),
+    (1, 256, 4, 64, 1, 128, 64),
+    (4, 2048, 64, 64, 1, 128, 64),
+]
+
+
+def ssd_inputs(B, S, nh, hd, G, ds, dtype, seed, device="cuda"):
+    """Model-like inputs: dt post-softplus, A = -exp(.), a nonzero state."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    x = rnd(B, nh, S, hd).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, nh, S) - 1.0)
+    A = -torch.exp(0.5 * rnd(nh))
+    Bm, Cm = rnd(B, G, S, ds).to(dtype), rnd(B, G, S, ds).to(dtype)
+    init = 0.1 * rnd(B, nh, hd, ds)
+    return x, dt, A, Bm, Cm, init
+
+
+def ssd_errors(got, want):
+    """(y error in units of the tolerance, state error in units of the
+    tolerance). y: |Δ| ≤ rtol·|y| + 1e-5·max|y|, rtol 2⁻⁷ (one bf16 ulp: the
+    two f32 sums differ in the last bits and may round to neighbouring bf16
+    values) or 0 for f32. State, f32 summed in another order over S/chunk
+    chunks: |Δ| ≤ 1e-5·max|S|."""
+    (y, s), (y0, s0) = got, want
+    y, y0 = y.float(), y0.float()
+    rtol = 2.0 ** -7 if got[0].dtype == torch.bfloat16 else 0.0
+    y_bound = rtol * y0.abs() + 1e-5 * float(y0.abs().max())
+    y_err = float(((y - y0).abs() / y_bound).max())
+    s_err = float((s - s0).abs().max()) / (1e-5 * float(s0.abs().max()))
+    return y_err, s_err
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_ssd_scan_matches_plain(shape, dtype):
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import kernel as SK
+
+    B, S, nh, hd, G, ds, chunk = shape
+    args = ssd_inputs(B, S, nh, hd, G, ds, dtype, seed=S)
+    before = SK.ssd_scan_fwd.launches
+    got = SK.ssd_scan_fwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SK.ssd_scan_fwd.launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    want = SK.ssd_scan_plain(*args, chunk=chunk)
+    y_err, s_err = ssd_errors(got, want)
+    assert y_err <= 1.0 and s_err <= 1.0, (y_err, s_err)
+    assert bool(torch.isfinite(got[0]).all()) and bool(torch.isfinite(got[1]).all())
+
+
+def test_cuda_ssd_ops_pads_and_continues():
+    """ops.ssd on the card: a ragged S goes through the padding, and two
+    halves carried through the state equal the whole, against the plain
+    version on the same inputs."""
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import kernel as SK, ops
+
+    x, dt, A, Bm, Cm, init = ssd_inputs(2, 200, 4, 64, 1, 128, torch.bfloat16, seed=5)
+    m = lambda t: t.movedim(1, 2)  # noqa: E731  (B, nh, S, ·) -> (B, S, nh, ·)
+    y, s = ops.ssd(m(x), m(dt), A, m(Bm), m(Cm), 64, init)
+    assert y.shape == (2, 200, 4, 64)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 56)) if t.ndim == 4 \
+        else torch.nn.functional.pad(t, (0, 56))  # noqa: E731
+    y0, s0 = SK.ssd_scan_plain(*(pad(t) for t in (x, dt)), A, pad(Bm), pad(Cm), init, chunk=64)
+    assert max(ssd_errors((m(y), s), (y0[:, :, :200], s0))) <= 1.0
+    y1, s1 = ops.ssd(m(x)[:, :128], m(dt)[:, :128], A, m(Bm)[:, :128], m(Cm)[:, :128], 64, init)
+    y2, s2 = ops.ssd(m(x)[:, 128:], m(dt)[:, 128:], A, m(Bm)[:, 128:], m(Cm)[:, 128:], 64, s1)
+    assert max(ssd_errors((torch.cat([y1, y2], 1), s2), (y, s))) <= 1.0
+
+
+def test_cuda_ssd_wrapper_refuses_instead_of_falling_back():
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import kernel as SK
+
+    x, dt, A, Bm, Cm, init = ssd_inputs(1, 64, 2, 32, 1, 16, torch.bfloat16, seed=0)
+    before = SK.ssd_scan_fwd.launches
+    bad = [
+        lambda: SK.ssd_scan_fwd(x, dt, A, Bm.float(), Cm, init, chunk=16),  # dtype
+        lambda: SK.ssd_scan_fwd(x.double(), dt, A, Bm, Cm, init, chunk=16),  # dtype
+        lambda: SK.ssd_scan_fwd(x, dt.bfloat16(), A, Bm, Cm, init, chunk=16),  # dt f32
+        lambda: SK.ssd_scan_fwd(x, dt, A, Bm, Cm, init[:, :1], chunk=16),  # shape
+        lambda: SK.ssd_scan_fwd(x, dt, A, Bm, Cm, init, chunk=48),  # S % chunk
+        lambda: SK.ssd_scan_fwd(x, dt, A, Bm, Cm, init, chunk=6),  # chunk % 4
+        lambda: SK.ssd_scan_fwd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm,
+                                Cm, init, chunk=16),  # not contiguous
+        lambda: SK.ssd_scan_fwd(x, dt, A, Bm.cpu(), Cm, init, chunk=16),  # mixed devices
+        lambda: SK.ssd_scan_fwd(*ssd_inputs(1, 64, 3, 32, 2, 16, torch.float32, seed=1),
+                                chunk=16),  # nh % G
+        lambda: SK.ssd_scan_fwd(*ssd_inputs(1, 64, 2, 256, 1, 256, torch.float32, seed=1),
+                                chunk=64),  # shared memory
+    ]
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
+    assert SK.ssd_scan_fwd.launches == before

@@ -1,7 +1,7 @@
 """Shared helpers of the PyTorch port's parity tests (``tests/test_torch_*.py``).
 
-Run as a script, it prints the measured model and server-step parity errors
-(``python tests/torch_parity.py``), or compares one client's fused top-k
+Run as a script, it prints the measured model, server-step and serving parity
+errors (``python tests/torch_parity.py``), or compares one client's fused top-k
 encode at photon-75m's full width in both packages
 (``python tests/torch_parity.py --topk-full-width``, about 4 GiB of host memory).
 
@@ -137,6 +137,50 @@ def _report() -> None:
               f"norms max rel err {float(np.max(np.abs(norms_t - norms_j) / norms_j)):.3e}")
 
 
+def _report_serving() -> None:
+    """Print the measured serving parity errors, relative to max|ref|, at the
+    inputs ``test_torch_ssm.py`` and ``test_torch_serve.py`` use."""
+    import sys
+    from pathlib import Path
+
+    import jax.numpy as jnp
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import test_torch_serve as SV
+    import test_torch_ssm as SM
+    from repro.kernels.ssd_scan import ops as j_ops
+    from repro.models import ssm as j_ssm
+    from repro_torch.kernels.ssd_scan import ops as t_ops
+    from repro_torch.models import ssm as t_ssm
+
+    def rel(got, want):
+        got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+        want = np.asarray(want, np.float32)
+        return float(np.abs(got - want).max() / (np.abs(want).max() or 1.0))
+
+    arrays = SM.ssd_inputs(1, 100, 4, 32, 2, 16, seed=100)
+    (jx, jdt, jA, jB, jC, js), (tx, tdt, tA, tB, tC, ts) = SM.both(arrays)
+    jy, jf = j_ssm.ssd_chunked(jx, jdt, jA, jB, jC, 32, js)
+    ty, tf = t_ssm.ssd_chunked(tx, tdt, tA, tB, tC, 32, ts)
+    print(f"ssd_chunked S=100 G=2: y {rel(ty, jy):.2e}, state {rel(tf, jf):.2e}")
+    jy, jf = j_ops.ssd(jx, jdt, jA, jB, jC, chunk=32, initial_state=js, interpret=True)
+    ty, tf = t_ops.ssd(tx, tdt, tA, tB, tC, 32, ts)
+    print(f"ssd plain vs Pallas interpret S=100 G=2: y {rel(ty, jy):.2e}, state {rel(tf, jf):.2e}")
+    jcfg, tcfg, jp, tp = SM._block_params()
+    x = np.random.default_rng(11).standard_normal((2, 40, jcfg.d_model)).astype(np.float32)
+    jo, jc = j_ssm.ssm_block(jcfg, jp, jnp.asarray(x), cache={})
+    to, tc = t_ssm.ssm_block(tcfg, tp, torch.from_numpy(x), cache={})
+    print(f"ssm_block prefill: out {rel(to, jo):.2e}, ssd cache {rel(tc['ssd'], jc['ssd']):.2e}")
+    for arch in SV.ARCHS:
+        jm, tm, jp, tp = SV.pair(arch)
+        toks = SV.prompt(jm.cfg, 2, 40, seed=40)
+        jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)})
+        tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)})
+        jf, tf = jax_flat(jc), torch_flat(tc)
+        print(f"{arch} reduced prefill: logits {rel(tl, jl):.2e}, worst cache leaf "
+              f"{max(rel(tf[k], jf[k]) for k in jf):.2e}")
+
+
 def _topk_full_width(k_fraction: float = 0.05, seed: int = 0) -> None:
     """One client's ``--fused-server`` top-k encode at photon-75m's full
     width (74,100,992 entries, one global budget) in both packages, on the
@@ -214,4 +258,8 @@ def _topk_full_width(k_fraction: float = 0.05, seed: int = 0) -> None:
 if __name__ == "__main__":
     import sys
 
-    _topk_full_width() if "--topk-full-width" in sys.argv[1:] else _report()
+    if "--topk-full-width" in sys.argv[1:]:
+        _topk_full_width()
+    else:
+        _report()
+        _report_serving()
