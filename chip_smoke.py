@@ -9,7 +9,8 @@ Phases, one JSON line each:
 
   env           torch/CUDA versions and the card's name and power limit
   build         compiles every CUDA source of the port from ``src/repro_torch/csrc``
-                (the two fedcore sources and ssd_scan.cu), one nvcc each, all at once
+                (the two fedcore sources, ssd_scan.cu and flash_attention.cu),
+                one nvcc each, all at once
   server_apply  the fused server-step kernel against its plain PyTorch version at
                 photon-75m's flat size (Np = 74,104,832, C = 4) for FedAvg,
                 FedMom and FedAdam, with and without DP noise, and FedAvg at
@@ -23,10 +24,18 @@ Phases, one JSON line each:
                 mamba2-1.3b's full per-layer prefill shape (B = 4, S = 2048,
                 nh = 64, hd = 64, G = 1, ds = 128, chunk = 64, bf16), from a
                 nonzero state, and at S = 2000 through ``ops.ssd``'s padding
+  flash_attention
+                the flash attention kernel against its plain version at
+                whisper-large-v3's encoder layer (B = 4, H = 20, S = 1500,
+                hd = 64, bf16, non-causal) and at small cases (causal with
+                q_offset, sliding windows, GQA groups of 2 and 4, hd 128,
+                f32, ragged lengths, rows that see no key): max error,
+                kernel / plain / F.scaled_dot_product_attention / bound times
   check         a reduced photon round on the card agrees with the same round on
                 the CPU (float32 compute), with the float32 and the top-k uplink;
-                reduced mamba2-1.3b and photon-75m ``generate`` (float32,
-                use_pallas) give the same tokens on the card and on the CPU
+                reduced mamba2-1.3b, photon-75m and whisper-large-v3 ``generate``
+                (float32, use_pallas) give the same tokens on the card and on
+                the CPU
   train         ``repro_torch.launch.train --arch photon-75m --fused-server``
                 for two rounds at full width on the card, with ``--uplink``
                 float32, topk, bf16 and int8; the kernel launch counts are
@@ -41,6 +50,15 @@ Phases, one JSON line each:
                 Prefill seconds, decode tokens/s, peak device memory, and a
                 torch.profiler breakdown of one prefill and one decode step
                 (device time by kernel, the device's busy share)
+  serve_whisper full-width whisper-large-v3 (32 encoder and 32 decoder layers,
+                random weights from seed 0): B = 4, 1500 audio frames of randn
+                embeddings, a 432-token prompt, 16 new tokens (448 decoder
+                positions, Whisper's text context). Float32
+                ``prefill(use_pallas=True)`` against ``use_pallas=False`` on the
+                card (held to 1e-4), the bf16 greedy tokens of both compared,
+                then ``generate(use_pallas=True)``: exactly 32 flash_attention
+                launches per prefill, none per decode step, no other kernel;
+                the serve numbers and profile as above
   kernels       one line {"kernels": [...]} with every kernel's numbers
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -49,6 +67,7 @@ non-zero; without a CUDA device the script exits 2 before printing a result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -66,6 +85,20 @@ SSD_SHAPE = dict(B=4, S=2048, nh=64, hd=64, G=1, ds=128, chunk=64)
 SSD_RAGGED_S = 2000  # not a multiple of the chunk: ops.ssd pads it
 SERVE_BATCH, SERVE_GEN, PHOTON_PROMPT = 4, 16, 512
 MAMBA2_LAYERS = 48
+WHISPER_LAYERS = 32  # encoder layers: one flash_attention launch each per prefill
+WHISPER_PROMPT = 448 - SERVE_GEN  # prompt + new tokens = Whisper's 448-token text context
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+#: whisper-large-v3's encoder self-attention (B, Hq, Hkv, Sq, Sk, hd, causal,
+#: window, q_offset), then small cases of every other option the kernel takes
+FLASH_ENCODER = (4, 20, 20, 1500, 1500, 64, False, None, 0)
+FLASH_SMALL = [
+    (2, 8, 8, 512, 512, 64, True, None, 0),  # causal
+    (2, 8, 8, 256, 1024, 64, True, None, 768),  # causal, q_offset = Sk - Sq
+    (2, 8, 8, 1000, 1000, 64, True, 128, 0),  # sliding window, ragged
+    (2, 16, 8, 700, 700, 128, False, None, 0),  # GQA grp 2, hd 128, ragged
+    (2, 16, 4, 333, 333, 64, True, 64, 0),  # GQA grp 4, window, ragged
+    (1, 4, 2, 64, 40, 64, True, None, -16),  # rows that see no key
+]
 NP_PHOTON_75M = 74_104_832  # photon-75m's 74,100,992 params padded to 8192-blocks
 COHORT = 4
 WIDE_COHORT = 40  # more clients than one server_apply launch holds (32)
@@ -117,9 +150,10 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 def all_kernels() -> dict:
     """Every kernel wrapper of the port, by name (each counts its launches)."""
     from repro_torch.kernels.fedcore import kernel as K
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.ssd_scan import kernel as SK
 
-    return {**K.KERNELS, **SK.KERNELS}
+    return {**K.KERNELS, **SK.KERNELS, **FK.KERNELS}
 
 
 def zero_launches() -> None:
@@ -474,26 +508,109 @@ def phase_ssd_scan() -> dict:
     return full
 
 
+def flash_bound(B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset, itemsize: int = 2):
+    """(bytes, flops) flash attention must move and do: q, k, v and o each
+    read or written once in ``itemsize`` bytes; both products at 2 flops per
+    multiply-add over the (query, key) pairs these masks let through."""
+    import torch
+
+    qp = q_offset + torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    seen = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        seen &= kp <= qp
+    if window is not None:
+        seen &= qp - kp < window
+    nbytes = itemsize * hd * (2 * B * Hq * Sq + 2 * B * Hkv * Sk)
+    return nbytes, 4 * B * Hq * int(seen.sum()) * hd
+
+
+def flash_case(case, dtype, gen) -> dict:
+    """Kernel against plain version on the card. y: |Δ| ≤ 2⁻⁷·|y| +
+    1e-5·max|y| for bf16 (one bf16 ulp: both sides sum in f32 in other
+    orders, then round), 1e-5·max|y| for f32. Times: the kernel, its plain
+    version, and F.scaled_dot_product_attention (non-causal, the same shape;
+    k and v repeated to Hq heads first where Hkv < Hq) as a yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset = case
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v = rnd(B, Hq, Sq, hd), rnd(B, Hkv, Sk, hd), rnd(B, Hkv, Sk, hd)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = FK.flash_attention_fwd(q, k, v, **kw)
+    want = FK.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    y, y0 = got.float(), want.float()
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    err = float((y - y0).abs().max())
+    units = float(((y - y0).abs() / (rtol * y0.abs() + 1e-5 * y0.abs().max())).max())
+    r = {"B": B, "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Sk": Sk, "hd": hd, "causal": causal,
+         "window": window, "q_offset": q_offset, "dtype": str(dtype).replace("torch.", ""),
+         "max_abs_err": err, "err_in_tolerance_units": units, "max_abs_y": float(y0.abs().max())}
+    assert units <= 1.0 and bool(torch.isfinite(y).all()), r
+    del got, want, y, y0
+    nbytes, flops = flash_bound(*case, itemsize=q.element_size())
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_OPS_PER_S * 1e3
+    kr, vr = (k, v) if Hkv == Hq else (k.repeat_interleave(Hq // Hkv, 1),
+                                       v.repeat_interleave(Hq // Hkv, 1))
+    kernel_ms = time_ms(lambda: FK.flash_attention_fwd(q, k, v, **kw), reps=20, warmup=3)
+    r.update(kernel_ms=kernel_ms,
+             plain_ms=time_ms(lambda: FK.flash_attention_plain(q, k, v, **kw), reps=3),
+             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr),
+                                reps=20, warmup=3),
+             bytes=nbytes, flops=flops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+             bound_ms=max(bytes_ms, ops_ms),
+             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+             bf16_tensor_core_ms=flops / BF16_TC_OPS_PER_S * 1e3,
+             kernel_TFLOPs=flops / (kernel_ms * 1e-3) / 1e12)
+    emit("flash_attention", **r)
+    return r
+
+
+def phase_flash_attention() -> dict:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    encoder = flash_case(FLASH_ENCODER, torch.bfloat16, gen)
+    for case in [FLASH_ENCODER] + FLASH_SMALL:
+        for dtype in (torch.bfloat16, torch.float32):
+            if (case, dtype) != (FLASH_ENCODER, torch.bfloat16):
+                flash_case(case, dtype, gen)
+    torch.cuda.empty_cache()
+    return encoder
+
+
 def phase_serve_check() -> None:
-    """Reduced mamba2-1.3b and photon-75m serve the same greedy tokens on the
-    card (the SSD kernel under use_pallas) and on the CPU (its plain version),
-    float32 compute, the same seed."""
+    """Reduced mamba2-1.3b, photon-75m and whisper-large-v3 serve the same
+    greedy tokens on the card (the SSD and flash kernels under use_pallas) and
+    on the CPU (their plain versions), float32 compute, the same seed."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
 
-    for arch in ("mamba2-1.3b", "photon-75m"):
+    for arch in ("mamba2-1.3b", "photon-75m", "whisper-large-v3"):
         cfg = dataclasses.replace(get_config(arch).reduced(), compute_dtype="float32")
         model = build_model(cfg)
         gen = torch.Generator().manual_seed(3)
         prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen, dtype=torch.int32)
+        audio = torch.randn((2, cfg.n_audio_frames, cfg.d_model), generator=gen) \
+            if cfg.enc_dec else None
         out = {dev: generate(model, model.init(0, device=dev), prompt.to(dev), 8,
+                             audio_embed=None if audio is None else audio.to(dev),
                              use_pallas=True).cpu() for dev in ("cpu", "cuda")}
         same = bool(torch.equal(out["cpu"], out["cuda"]))
         emit("check", serve=arch, tokens_cuda=out["cuda"][:, 40:].tolist(),
              tokens_cpu=out["cpu"][:, 40:].tolist(), same=same)
         assert same, arch
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want|, in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / float(want.abs().max())
 
 
 def profile_device(fn) -> dict:
@@ -518,7 +635,7 @@ def profile_device(fn) -> dict:
             "top_kernels_ms": dict(top)}
 
 
-def _serve(model, params, prompt, use_pallas: bool) -> dict:
+def _serve(model, params, prompt, use_pallas: bool, audio=None) -> dict:
     """``generate`` as a user calls it (the launch counts zeroed just before,
     read just after), then its two parts timed apart: one prefill, and the
     decode steps from that prefill's cache."""
@@ -526,25 +643,33 @@ def _serve(model, params, prompt, use_pallas: bool) -> dict:
     from repro_torch.launch.serve import generate, merge
 
     B, S0 = prompt.shape
+    batch = {"tokens": prompt} if audio is None else {"tokens": prompt, "audio_embed": audio}
+    gc.collect()  # reference cycles of earlier phases may still hold device memory
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 1e9  # the weights and the inputs
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
-    out = generate(model, params, prompt, SERVE_GEN, use_pallas=use_pallas)
+    out = generate(model, params, prompt, SERVE_GEN, audio_embed=audio, use_pallas=use_pallas)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
 
     zero_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompt}, use_pallas=use_pallas)
+    logits, cache = model.prefill(params, batch, use_pallas=use_pallas)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_launches = read_launches()
+    prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+    prefill_end = torch.cuda.memory_allocated() / 1e9  # + the prefill's cache and logits
     cache = merge(model.init_cache(B, S0 + SERVE_GEN, device=prompt.device), cache)
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9  # weights and the grown cache
     t0 = time.perf_counter()
     for i in range(SERVE_GEN - 1):
         logits, cache = model.decode_step(params, cache, tok, S0 + i, use_pallas=use_pallas)
@@ -552,22 +677,25 @@ def _serve(model, params, prompt, use_pallas: bool) -> dict:
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     decode_launches = read_launches()
+    decode_peak = torch.cuda.max_memory_allocated() / 1e9
     assert tuple(out.shape) == (B, S0 + SERVE_GEN), out.shape
     assert bool(((out >= 0) & (out < model.cfg.vocab_size)).all())
     assert bool(torch.isfinite(logits).all())
 
     # where the time goes: device time per kernel, and the device's busy share
     # of the unprofiled wall time (prefill; one decode step)
-    prof_prefill = profile_device(
-        lambda: model.prefill(params, {"tokens": prompt}, use_pallas=use_pallas))
+    prof_prefill = profile_device(lambda: model.prefill(params, batch, use_pallas=use_pallas))
     prof_decode = profile_device(
         lambda: model.decode_step(params, cache, tok, S0 + SERVE_GEN - 1, use_pallas=use_pallas))
     step_ms = decode_s / (SERVE_GEN - 1) * 1e3
     return {"generate_s": generate_s, "prefill_s": prefill_s, "decode_s": decode_s,
             "prefill_tokens_per_s": B * S0 / prefill_s,
             "decode_tokens_per_s": B * (SERVE_GEN - 1) / decode_s, "decode_step_ms": step_ms,
-            "peak_mem_GB": peak, "launches": launches, "prefill_launches": prefill_launches,
-            "decode_launches": decode_launches, "sample": out[0, S0:].tolist(),
+            "resident_mem_GB": resident, "peak_mem_GB": peak, "prefill_peak_mem_GB": prefill_peak,
+            "prefill_end_mem_GB": prefill_end,
+            "decode_start_mem_GB": held, "decode_peak_mem_GB": decode_peak,
+            "launches": launches, "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches, "tokens": out[:, S0:].tolist(),
             "prefill_device_busy_share": prof_prefill["device_ms"] / (prefill_s * 1e3),
             "decode_device_busy_share": prof_decode["device_ms"] / step_ms,
             "prefill_profile": prof_prefill, "decode_step_profile": prof_decode}
@@ -600,10 +728,8 @@ def phase_serve_mamba2() -> dict:
         torch.cuda.synchronize()
         scale = float(lp.float().abs().max())
         logit_err = float((lk.float() - lp.float()).abs().max())
-        cache_err = {}
-        for name in ("conv", "ssd"):
-            a, b = ck[0]["pos0"]["mixer"][name].float(), cp[0]["pos0"]["mixer"][name].float()
-            cache_err[name] = float((a - b).abs().max()) / float(b.abs().max())
+        cache_err = {name: rel_err(ck[0]["pos0"]["mixer"][name], cp[0]["pos0"]["mixer"][name])
+                     for name in ("conv", "ssd")}
         same_tokens = bool(torch.equal(torch.argmax(lk[:, -1], -1), torch.argmax(lp[:, -1], -1)))
         r = {"compute_dtype": c.compute_dtype, "logits_max_abs_err": logit_err,
              "logits_max_abs": scale, "logits_rel_err": logit_err / scale,
@@ -653,6 +779,69 @@ def phase_serve_photon() -> dict:
     return r
 
 
+def phase_serve_whisper() -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("whisper-large-v3")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    assert cfg.n_encoder_layers == WHISPER_LAYERS and cfg.d_model == 1280
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(0, device="cuda")
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, WHISPER_PROMPT), generator=gen,
+                           dtype=torch.int32).cuda()
+    audio = torch.randn((SERVE_BATCH, cfg.n_audio_frames, cfg.d_model), generator=gen).cuda()
+    batch = {"tokens": prompt, "audio_embed": audio}
+    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, n_encoder_layers=cfg.n_encoder_layers,
+         d_model=cfg.d_model, n_params=n_params, param_count=cfg.param_count(), init_s=init_s)
+    assert n_params == 1_578_803_200, n_params
+
+    # use_pallas against the plain path on the card, float32 then bf16 compute
+    for c in (cfg32, cfg):
+        model = build_model(c)
+        lk, ck = model.prefill(params, batch, use_pallas=True)
+        lp, cp = model.prefill(params, batch, use_pallas=False)
+        torch.cuda.synchronize()
+        scale = float(lp.float().abs().max())
+        logit_err = float((lk.float() - lp.float()).abs().max())
+        cache_err = {name: rel_err(ck[0]["pos0"][name]["k"], cp[0]["pos0"][name]["k"])
+                     for name in ("mixer", "cross")}
+        same = int((torch.argmax(lk[:, -1], -1) == torch.argmax(lp[:, -1], -1)).sum())
+        r = {"compute_dtype": c.compute_dtype, "logits_max_abs_err": logit_err,
+             "logits_max_abs": scale, "logits_rel_err": logit_err / scale,
+             "cache_rel_err": cache_err, "same_next_tokens": same, "of": SERVE_BATCH}
+        emit("serve", arch=cfg.name, check="prefill use_pallas vs plain", **r)
+        assert all(math.isfinite(v) for v in (logit_err, *cache_err.values())), r
+        if c.compute_dtype == "float32":
+            # 32 encoder layers whose attention the kernel sums in another order
+            # than the einsums, then 32 decoder layers on that output
+            assert logit_err <= 1e-4 * scale, r
+            assert max(cache_err.values()) <= 1e-4, r
+        del lk, ck, lp, cp
+        torch.cuda.empty_cache()
+
+    model = build_model(cfg)
+    plain = generate(model, params, prompt, SERVE_GEN, audio_embed=audio).cpu()
+    r = _serve(model, params, prompt, use_pallas=True, audio=audio)
+    agree = int((torch.tensor(r["tokens"]) == plain[:, WHISPER_PROMPT:]).sum())
+    emit("serve", arch=cfg.name, batch=SERVE_BATCH, prompt=WHISPER_PROMPT,
+         audio_frames=cfg.n_audio_frames, new_tokens=SERVE_GEN, use_pallas=True,
+         bf16_tokens_agreeing_with_plain_path=agree, of=SERVE_BATCH * SERVE_GEN, **r)
+    others = {n: 0 for n in r["launches"] if n != "flash_attention"}
+    assert r["launches"] == {"flash_attention": WHISPER_LAYERS, **others}, r["launches"]
+    assert r["prefill_launches"] == {"flash_attention": WHISPER_LAYERS, **others}, r
+    assert r["decode_launches"] == {"flash_attention": 0, **others}, r
+    del params
+    torch.cuda.empty_cache()
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -671,11 +860,13 @@ def main() -> int:
     sa = phase_server_apply()
     codecs = phase_codecs()
     ssd = phase_ssd_scan()
+    flash = phase_flash_attention()
     phase_check()
     phase_serve_check()
     launches = {uplink: phase_train(uplink) for uplink in TRAIN_KERNELS}
     mamba2 = phase_serve_mamba2()
     phase_serve_photon()
+    whisper = phase_serve_whisper()
 
     main_case = sa[("fedavg", False)]  # the main path: FedAvg, no DP noise, C = 4
     kernels = [{
@@ -708,6 +899,15 @@ def main() -> int:
         "ms": ssd["kernel_ms"], "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
         "bound_by": ssd["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes the SSD chunk scan",
+    })
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+        "launches": whisper["launches"]["flash_attention"], "max_abs_err": flash["max_abs_err"],
+        "ms": flash["kernel_ms"], "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "library_note": "F.scaled_dot_product_attention at the encoder layer's shape",
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -148,6 +148,9 @@ class ModelConfig:
             )
         return kinds
 
+    def encoder_layer_kinds(self) -> List[LayerKind]:
+        return [LayerKind(mixer="attn", ffn="dense") for _ in range(self.n_encoder_layers)]
+
     # ------------------------------------------------------------------
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks); used for 6ND."""

@@ -167,22 +167,25 @@ def _is_int8_payload(node) -> bool:
     return isinstance(node, dict) and set(node) == {"q", "scale"}
 
 
+def _int8_entries_into(node, entries: List[dict]):
+    """``node`` with each ``{q, scale}`` entry replaced by None, appending the
+    entries in leaf order (module level, not a recursive closure: that would
+    keep ``entries`` in a reference cycle until the garbage collector runs)."""
+    if _is_int8_payload(node):
+        entries.append(node)
+        return None
+    if isinstance(node, dict):
+        return {k: _int8_entries_into(node[k], entries) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_int8_entries_into(x, entries) for x in node)
+    raise TypeError(f"not an int8 payload node: {type(node).__name__}")
+
+
 def int8_payload_leaves(payload) -> Tuple[List[dict], Any]:
     """The ``{q, scale}`` entries of an int8 payload in leaf order, and a
     treedef of the tree they replace (dicts here are tree nodes)."""
     entries: List[dict] = []
-
-    def walk(node):
-        if _is_int8_payload(node):
-            entries.append(node)
-            return None
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(x) for x in node)
-        raise TypeError(f"not an int8 payload node: {type(node).__name__}")
-
-    return entries, tree_flatten(walk(payload))[1]
+    return entries, tree_flatten(_int8_entries_into(payload, entries))[1]
 
 
 def int8_decompress(ctree):

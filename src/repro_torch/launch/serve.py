@@ -4,19 +4,28 @@ counterpart of ``repro.launch.serve``. The run is on ``cuda`` unless
 never a silent fall back.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --reduced \\
       --batch 2 --prompt-len 32 --gen 16 --device cpu
 
+An encoder-decoder model (whisper-large-v3) also takes audio frame
+embeddings: ``generate(..., audio_embed=)`` hands them to the prefill, which
+runs the encoder and writes each decoder layer's cross-attention cache; the
+CLI draws them with ``randn`` from the seed's generator, as the reference's.
+
 ``generate(..., use_pallas=True)`` sends the prefill of every SSM layer
-through the CUDA chunk-scan kernel (``kernels/ssd_scan``), as the reference's
-``model.prefill(p, b, use_pallas=True)`` sends it to its Pallas kernel; decode
-steps use the recurrent update either way. The CLI, like the reference's,
-leaves ``use_pallas`` off.
+through the CUDA chunk-scan kernel (``kernels/ssd_scan``) and every self-
+attention of whisper's encoder through the CUDA flash-attention kernel
+(``kernels/flash_attention``), as the reference's
+``model.prefill(p, b, use_pallas=True)`` sends them to its Pallas kernels;
+decode steps run neither. The CLI, like the reference's, leaves
+``use_pallas`` off.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,10 +52,14 @@ def merge(dst, src):
 
 @torch.no_grad()
 def generate(model, params, prompt_tokens: torch.Tensor, max_new: int, *,
+             audio_embed: Optional[torch.Tensor] = None,
              use_pallas: bool = False) -> torch.Tensor:
     """Greedy decode. prompt_tokens: (B, S0). Returns (B, S0+max_new)."""
     B, S0 = prompt_tokens.shape
-    logits, cache = model.prefill(params, {"tokens": prompt_tokens}, use_pallas=use_pallas)
+    batch = {"tokens": prompt_tokens}
+    if audio_embed is not None:
+        batch["audio_embed"] = audio_embed
+    logits, cache = model.prefill(params, batch, use_pallas=use_pallas)
 
     # grow attention caches to S0 + max_new
     full = model.init_cache(B, S0 + max_new, dtype=torch.bfloat16, device=prompt_tokens.device)
@@ -85,8 +98,13 @@ def main(argv=None) -> None:
     prompt = torch.from_numpy(
         rng.randint(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     ).to(device)
+    audio = None
+    if cfg.enc_dec:
+        audio = torch.from_numpy(
+            rng.randn(args.batch, cfg.n_audio_frames, cfg.d_model).astype(np.float32)
+        ).to(device)
     t0 = time.perf_counter()
-    out = generate(model, params, prompt, args.gen).cpu()  # .cpu() waits for the device
+    out = generate(model, params, prompt, args.gen, audio_embed=audio).cpu()  # waits for the device
     dt = time.perf_counter() - t0
     print(f"generated {tuple(out.shape)} in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s)")

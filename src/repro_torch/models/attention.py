@@ -1,12 +1,13 @@
-"""Grouped-query self-attention with ALiBi/RoPE, causal and sliding-window
-masks and the KV cache of prefill/decode — ``repro.models.attention`` without
-cross-attention.
+"""Grouped-query attention with ALiBi/RoPE, causal and sliding-window masks,
+cross-attention and the KV cache of prefill/decode — ``repro.models.attention``.
 
 The scaled-dot-product core is written in plain einsum/softmax, as the JAX
-reference computes it outside any kernel. Where the reference would send the
-core to its Pallas flash kernel (``use_pallas`` on a self-attention layer
-without ALiBi, outside decode, with a window that is None or a Python int),
-the port raises: that kernel is not ported yet (ROADMAP.md).
+reference computes it outside any kernel. Under ``use_pallas``, where the
+reference sends the core to its Pallas flash kernel (self-attention without
+ALiBi, outside decode, with a window that is None or a Python int), the port
+sends it to the CUDA flash kernel through ``kernels/flash_attention/ops``.
+Through the model only whisper's encoder gets there: a decoder layer's window
+is an entry of the window array, a 0-d tensor.
 """
 from __future__ import annotations
 
@@ -15,12 +16,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import ParamDesc, alibi_slopes, apply_rope, rmsnorm
 
 NEG_INF = -1e30
 
 
-def attn_desc(cfg) -> dict:
+def attn_desc(cfg, cross: bool = False) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     scale = 0.02
@@ -30,7 +32,7 @@ def attn_desc(cfg) -> dict:
         "wv": ParamDesc((d, hkv, hd), "normal", scale),
         "wo": ParamDesc((hq, hd, d), "normal", scale / max(1, 2 * cfg.n_layers) ** 0.5),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = ParamDesc((hd,), "ones")
         p["k_norm"] = ParamDesc((hd,), "ones")
     return p
@@ -144,26 +146,32 @@ def attention(
     window=None,
     cache: Optional[dict] = None,  # {'k': (B, Smax, Hkv, hd), 'v': ...} decode/prefill
     cache_index=None,  # scalar write offset for decode
+    kv_source: Optional[torch.Tensor] = None,  # cross-attention memory (B, Skv, D)
     use_pallas: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention layer. Returns ``(y, new_cache)``; ``new_cache`` is None
-    without a cache, the computed ``{k, v}`` at prefill, and the cache with
-    this step's entries written at ``cache_index`` at decode."""
+    """Self- or cross-attention layer. Returns ``(y, new_cache)``;
+    ``new_cache`` is None without a cache, the computed ``{k, v}`` at prefill
+    (for cross-attention, the memory's), and the cache with this step's
+    entries written at ``cache_index`` at decode."""
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    kv_in = kv_source if kv_source is not None else x
+    k = torch.einsum("bsd,dhk->bshk", kv_in, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", kv_in, p["wv"].to(x.dtype))
 
     if "q_norm" in p:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
-    if cfg.pos_embedding == "rope":
+    if kv_source is None and cfg.pos_embedding == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
-        if cache_index is not None and "k" in cache and cache["k"].shape[1] > S:
+        if kv_source is not None and cache_index is None:
+            # the cross-attention cache is written once, at prefill: the memory's k/v
+            new_cache = {"k": k, "v": v}
+        elif cache_index is not None and "k" in cache and cache["k"].shape[1] > S:
             # decode: write S (=1) new entries at cache_index, attend over the full cache
             i = int(cache_index)
             ck, cv = cache["k"].clone(), cache["v"].clone()
@@ -177,24 +185,28 @@ def attention(
 
     Sk = k.shape[1]
     k_positions = torch.arange(Sk, device=x.device)
-    k_len = None
-    if cache is not None and cache_index is not None and Sk > S:
-        k_len = cache_index + S
-    slopes = alibi_slopes(cfg.n_heads, x.device) if cfg.pos_embedding == "alibi" else None
+    slopes = None
+    if kv_source is not None:
+        eff_causal, eff_window, k_len = False, None, None
+    else:
+        eff_causal, eff_window = causal, window
+        k_len = None
+        if cache is not None and cache_index is not None and Sk > S:
+            k_len = cache_index + S
+        if cfg.pos_embedding == "alibi":
+            slopes = alibi_slopes(cfg.n_heads, x.device)
 
-    flash = slopes is None and k_len is None and (window is None or isinstance(window, int))
-    if use_pallas and flash:
-        raise NotImplementedError(
-            "use_pallas on self-attention without ALiBi takes the reference's Pallas "
-            "flash_attention_fwd, which the port has not ported yet (ROADMAP.md queue B)"
-        )
-    if S >= 512:
+    if (use_pallas and slopes is None and kv_source is None and k_len is None
+            and (window is None or isinstance(window, int))):
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    elif S >= 512:
         out = sdpa_chunked(
-            q, k, v, q_pos=positions, k_pos=k_positions, causal=causal,
-            window=window, k_len=k_len, slopes=slopes,
+            q, k, v, q_pos=positions, k_pos=k_positions, causal=eff_causal,
+            window=eff_window, k_len=k_len, slopes=slopes,
         )
     else:
-        mask = make_mask(positions, k_positions, causal, window, k_len)
+        mask = (None if kv_source is not None
+                else make_mask(positions, k_positions, eff_causal, eff_window, k_len))
         bias = None
         if slopes is not None:
             dist = (positions[:, None] - k_positions[None, :]).float()

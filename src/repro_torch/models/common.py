@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.tree import flatten_with_paths, tree_flatten, tree_unflatten
+from repro_torch.tree import flatten_with_paths, tree_flatten, tree_map, tree_unflatten
 
 
 @dataclass(frozen=True)
@@ -55,7 +55,9 @@ def _materialize(desc: ParamDesc, gen: torch.Generator, dtype) -> torch.Tensor:
 def init_params(seed: int, desc_tree, dtype=torch.float32, device="cpu"):
     """Materialize a ParamDesc tree: leaf ``path`` draws from a CPU generator
     seeded with ``(seed, crc32(path))``, so values do not depend on the device
-    or on the other leaves."""
+    or on the other leaves. On the ``meta`` device only shapes are made."""
+    if torch.device(device).type == "meta":
+        return tree_map(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"), desc_tree)
     out = []
     for path, desc in flatten_with_paths(desc_tree):
         gen = torch.Generator().manual_seed((int(seed) << 32) ^ zlib_hash(path))

@@ -6,6 +6,10 @@
     logits, cache = model.prefill(params, batch, use_pallas=True)
     logits, cache = model.decode_step(params, cache, tokens, cache_index)
 
+An encoder-decoder model (whisper) takes its audio frame embeddings as
+``batch["audio_embed"]`` (B, F, D) in ``loss``, ``forward`` and ``prefill``;
+decode steps read the cross-attention cache that prefill wrote.
+
 The backward pass is autograd over the plain torch ops; the reference has no
 custom VJP on this path either.
 """
@@ -81,7 +85,8 @@ class Model:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token LM loss. batch['tokens'] (B,S); optional batch['loss_mask']."""
         tokens = batch["tokens"].long()
-        h, _, _ = transformer.forward(self.cfg, params, tokens, logits_mode="hidden")
+        h, _, _ = transformer.forward(self.cfg, params, tokens,
+                                      audio_embed=batch.get("audio_embed"), logits_mode="hidden")
         labels = torch.cat(
             [tokens[:, 1:], torch.full((tokens.shape[0], 1), -1, dtype=tokens.dtype,
                                        device=tokens.device)], dim=1
@@ -96,8 +101,8 @@ class Model:
                 cache=None, cache_index=None, use_pallas: bool = False):
         """``(logits, aux, new_cache)`` of ``transformer.forward``."""
         return transformer.forward(
-            self.cfg, params, batch["tokens"], mode=mode, cache=cache,
-            cache_index=cache_index, use_pallas=use_pallas,
+            self.cfg, params, batch["tokens"], audio_embed=batch.get("audio_embed"), mode=mode,
+            cache=cache, cache_index=cache_index, use_pallas=use_pallas,
         )
 
     # -- serving ----------------------------------------------------------
@@ -108,8 +113,8 @@ class Model:
         """Fills the cache; returns next-token logits (last position only — the
         full (B, S, V) logits tensor is never materialized)."""
         logits, _, cache = transformer.forward(
-            self.cfg, params, batch["tokens"], mode="prefill", use_pallas=use_pallas,
-            logits_mode="last",
+            self.cfg, params, batch["tokens"], audio_embed=batch.get("audio_embed"),
+            mode="prefill", use_pallas=use_pallas, logits_mode="last",
         )
         return logits, cache
 

@@ -1,12 +1,15 @@
 """Pattern-aware transformer engine — the counterpart of
-``repro.models.transformer`` without MoE and the encoder-decoder.
+``repro.models.transformer`` without MoE: decoder stacks of attention or SSM
+layers, and whisper's encoder-decoder (a non-causal audio encoder, learned
+decoder positions, cross-attention with a cache written at prefill).
 
 Layers are grouped into *segments* by ``plan_segments`` exactly as the
 reference groups them: a short prefix plus a periodic body whose parameters
-are stacked on a leading ``layers`` axis. The reference runs the body with
-``lax.scan``; here a Python loop walks the stacked axis, and the caches of a
-body are stacked on the same axis. The parameter and cache trees therefore
-have the reference's key paths and shapes leaf for leaf.
+are stacked on a leading ``layers`` axis. The reference runs the body (and
+the encoder's stack) with ``lax.scan``; here a Python loop walks the stacked
+axis, and the caches of a body are stacked on the same axis. The parameter
+and cache trees therefore have the reference's key paths and shapes leaf for
+leaf.
 
 Modes: 'train' (no cache), 'prefill' (returns the cache), 'decode' (one token,
 updates the cache).
@@ -77,16 +80,19 @@ def plan_segments(kinds: List[LayerKind], max_period: int = 12) -> List[SegmentP
 
 
 def _layer_desc(cfg: ModelConfig, kind: LayerKind) -> dict:
-    if kind.cross_attn or kind.ffn == "moe":
+    if kind.ffn == "moe":
         raise NotImplementedError(
-            f"layer kind {kind} is not ported yet: the port has dense attention and "
-            f"SSM layers without cross-attention or MoE (ROADMAP.md queue A)"
+            f"layer kind {kind} is not ported yet: the port has dense-FFN and SSM "
+            f"layers, no MoE (ROADMAP.md queue A)"
         )
     d = {"norm1": norm_desc(cfg)}
     if kind.mixer == "attn":
         d["mixer"] = attn_mod.attn_desc(cfg)
     else:
         d["mixer"] = ssm_mod.ssm_desc(cfg)
+    if kind.cross_attn:
+        d["norm_cross"] = norm_desc(cfg)
+        d["cross_attn"] = attn_mod.attn_desc(cfg, cross=True)
     if kind.ffn == "dense":
         d["norm2"] = norm_desc(cfg)
         d["ffn"] = moe_mod.dense_ffn_desc(cfg, cfg.d_ff)
@@ -101,18 +107,19 @@ def _segment_desc(cfg: ModelConfig, seg: SegmentPlan) -> dict:
 
 
 def model_desc(cfg: ModelConfig) -> dict:
-    if cfg.enc_dec or cfg.pos_embedding == "learned":
-        raise NotImplementedError(
-            f"{cfg.name}: learned positions and encoder-decoder models are not "
-            f"ported yet (ROADMAP.md queue A)"
-        )
-    d: Dict[str, Any] = {
-        "embed": ParamDesc((cfg.padded_vocab, cfg.d_model), "embed"),
-        "segments": [_segment_desc(cfg, s) for s in plan_segments(cfg.layer_kinds())],
-        "final_norm": norm_desc(cfg),
-    }
+    d: Dict[str, Any] = {"embed": ParamDesc((cfg.padded_vocab, cfg.d_model), "embed")}
+    if cfg.pos_embedding == "learned":
+        d["pos_embed"] = ParamDesc((cfg.max_seq_len, cfg.d_model), "embed")
+    d["segments"] = [_segment_desc(cfg, s) for s in plan_segments(cfg.layer_kinds())]
+    d["final_norm"] = norm_desc(cfg)
     if not cfg.tie_embeddings:
         d["lm_head"] = ParamDesc((cfg.d_model, cfg.padded_vocab), "normal")
+    if cfg.enc_dec:
+        d["encoder"] = {
+            "audio_pos": ParamDesc((cfg.n_audio_frames, cfg.d_model), "embed"),
+            "segments": [_segment_desc(cfg, s) for s in plan_segments(cfg.encoder_layer_kinds())],
+            "final_norm": norm_desc(cfg),
+        }
     return d
 
 
@@ -122,12 +129,18 @@ def model_desc(cfg: ModelConfig) -> dict:
 
 
 def _layer_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int, dtype, device):
-    if kind.mixer == "attn":
-        hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-        shape = (batch, max_len, hkv, hd)
-        return {"mixer": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                          "v": torch.zeros(shape, dtype=dtype, device=device)}}
-    return {"mixer": ssm_mod.empty_ssm_cache(cfg, batch, device)}
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def kv(length):
+        shape = (batch, length, hkv, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    c: Dict[str, Any] = {"mixer": kv(max_len) if kind.mixer == "attn"
+                         else ssm_mod.empty_ssm_cache(cfg, batch, device)}
+    if kind.cross_attn:
+        c["cross"] = kv(cfg.n_audio_frames)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
@@ -160,6 +173,7 @@ def _apply_layer(
     positions: torch.Tensor,
     cache: Optional[dict],
     cache_index,
+    enc_out: Optional[torch.Tensor],
     decode: bool,
     use_pallas: bool,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
@@ -179,10 +193,33 @@ def _apply_layer(
         new_cache["mixer"] = mc
     h = h + a
 
+    if kind.cross_attn:
+        xc = apply_norm(cfg, p["norm_cross"], h)
+        if decode:  # the memory's k/v, written at prefill
+            cc = cache["cross"]
+            ca = _cross_attend_cached(p["cross_attn"], xc, cc)
+            new_cache["cross"] = cc
+        else:
+            ca, cc = attn_mod.attention(
+                cfg, p["cross_attn"], xc, positions=positions, causal=False,
+                cache={} if cache is not None else None, kv_source=enc_out,
+            )
+            if cc is not None:
+                new_cache["cross"] = cc
+        h = h + ca
+
     if kind.ffn == "dense":
         x2 = apply_norm(cfg, p["norm2"], h)
         h = h + moe_mod.dense_ffn(cfg, p["ffn"], x2)
     return h, (new_cache if (cache is not None or decode) else None)
+
+
+def _cross_attend_cached(p: dict, x: torch.Tensor, cross_cache: dict) -> torch.Tensor:
+    """Decode-time cross-attention against the encoder k/v cached at prefill."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k, v = cross_cache["k"].to(x.dtype), cross_cache["v"].to(x.dtype)
+    out = attn_mod.sdpa(q, k, v, mask=None)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
 
 def _apply_segment(
@@ -195,6 +232,7 @@ def _apply_segment(
     positions: torch.Tensor,
     seg_cache,
     cache_index,
+    enc_out,
     decode: bool,
     use_pallas: bool,
 ):
@@ -214,7 +252,7 @@ def _apply_segment(
             h, nc = _apply_layer(
                 cfg, kind, params_r[key], h, window=windows[r, pidx], positions=positions,
                 cache=cache_r.get(key) if cache_r else None, cache_index=cache_index,
-                decode=decode, use_pallas=use_pallas,
+                enc_out=enc_out, decode=decode, use_pallas=use_pallas,
             )
             if nc is not None:
                 new_cache_r[key] = nc
@@ -222,6 +260,35 @@ def _apply_segment(
     if seg.n_repeat == 1:
         return h, (new_caches[0] or None)
     return h, tree_stack(new_caches)
+
+
+# ---------------------------------------------------------------------------
+# Encoder (audio, non-causal)
+# ---------------------------------------------------------------------------
+
+
+def _encode(cfg: ModelConfig, enc_params: dict, audio_embed: torch.Tensor,
+            use_pallas: bool) -> torch.Tensor:
+    """The audio encoder: frame embeddings plus ``audio_pos``, then every
+    encoder layer (non-causal self-attention, which ``use_pallas`` sends to
+    the flash kernel, and the dense FFN), then the final norm."""
+    n_frames = audio_embed.shape[1]
+    h = audio_embed + enc_params["audio_pos"][None, :n_frames].to(audio_embed.dtype)
+    positions = torch.arange(n_frames, device=audio_embed.device)
+
+    def enc_layer(h, p):
+        x = apply_norm(cfg, p["norm1"], h)
+        a, _ = attn_mod.attention(cfg, p["mixer"], x, positions=positions, causal=False,
+                                  use_pallas=use_pallas)
+        h = h + a
+        x2 = apply_norm(cfg, p["norm2"], h)
+        return h + moe_mod.dense_ffn(cfg, p["ffn"], x2)
+
+    for seg, seg_params in zip(plan_segments(cfg.encoder_layer_kinds()), enc_params["segments"]):
+        for r in range(seg.n_repeat):
+            params_r = seg_params if seg.n_repeat == 1 else tree_map(lambda x: x[r], seg_params)
+            h = enc_layer(h, params_r["pos0"])
+    return apply_norm(cfg, enc_params["final_norm"], h)
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +301,7 @@ def forward(
     params: dict,
     tokens: torch.Tensor,  # (B, S) integer
     *,
+    audio_embed: Optional[torch.Tensor] = None,  # (B, F, D) for enc-dec (stub frontend)
     mode: str = "train",  # 'train' | 'prefill' | 'decode'
     cache=None,
     cache_index=None,  # decode: position of the first new token (an int)
@@ -254,6 +322,17 @@ def forward(
     else:
         positions = torch.arange(S, device=tokens.device)
 
+    if cfg.pos_embedding == "learned":
+        # dynamic_slice_in_dim's clamp: the slice stays inside the table
+        start = min(max(int(cache_index) if decode else 0, 0), cfg.max_seq_len - S)
+        h = h + params["pos_embed"][start:start + S].to(compute_dtype)
+
+    enc_out = None
+    if cfg.enc_dec and not decode:
+        if audio_embed is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: it needs audio_embed")
+        enc_out = _encode(cfg, params["encoder"], audio_embed.to(compute_dtype), use_pallas)
+
     all_kinds = cfg.layer_kinds()
     segs = plan_segments(all_kinds)
     if mode == "prefill" and cache is None:
@@ -265,7 +344,7 @@ def forward(
     ):
         h, seg_new_cache = _apply_segment(
             cfg, seg, seg_params, h, all_kinds=all_kinds, positions=positions,
-            seg_cache=seg_cache, cache_index=cache_index, decode=decode,
+            seg_cache=seg_cache, cache_index=cache_index, enc_out=enc_out, decode=decode,
             use_pallas=use_pallas,
         )
         if new_cache is not None:

@@ -32,32 +32,38 @@ def _is_node(x) -> bool:
     return isinstance(x, (dict, list, tuple))
 
 
+# The walks below are module-level functions that take their accumulator as an
+# argument. A recursive closure would sit in a reference cycle with the list it
+# fills (function -> cell -> function), which keeps every leaf (device memory
+# included) alive until the cyclic garbage collector happens to run.
+
+
+def _flatten_into(node, leaves: List[Any]):
+    if isinstance(node, dict):
+        return {k: _flatten_into(node[k], leaves) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_flatten_into(x, leaves) for x in node)
+    leaves.append(node)
+    return _LEAF
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """``(leaves, treedef)`` in JAX order; :func:`tree_unflatten` inverts it."""
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(x) for x in node)
-        leaves.append(node)
-        return _LEAF
 
-    return leaves, walk(tree)
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(v, it) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(x, it) for x in node)
+    return next(it)
 
 
 def tree_unflatten(treedef, leaves):
     it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(x) for x in node)
-        return next(it)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, _LEAF) is not _LEAF:
         raise ValueError("more leaves than the treedef has slots")
     return out
@@ -81,21 +87,21 @@ def tree_stack(trees):
                                     for i in range(len(leaves))])
 
 
+def _walk_paths(node, prefix: str, out: List[Tuple[str, Any]]) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk_paths(node[k], f"{prefix}[{k!r}]", out)
+    elif isinstance(node, (list, tuple)):
+        for i, x in enumerate(node):
+            _walk_paths(x, f"{prefix}[{i}]", out)
+    else:
+        out.append((prefix, node))
+
+
 def flatten_with_paths(tree) -> List[Tuple[str, Any]]:
     """``[(keystr, leaf)]`` in flatten order, keystr as ``jax.tree_util.keystr``."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, prefix: str):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], f"{prefix}[{k!r}]")
-        elif isinstance(node, (list, tuple)):
-            for i, x in enumerate(node):
-                walk(x, f"{prefix}[{i}]")
-        else:
-            out.append((prefix, node))
-
-    walk(tree, "")
+    _walk_paths(tree, "", out)
     return out
 
 

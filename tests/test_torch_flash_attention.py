@@ -1,0 +1,185 @@
+"""The flash attention kernel's plain version (``flash_attention_plain``, what
+the wrapper runs on a CPU tensor), its model-layout wrapper and its oracle,
+against the JAX package's Pallas kernel in interpret mode and its
+``attention_ref``, on the same numpy inputs.
+
+Tolerances: float32 |Δ| ≤ 1e-5·max|ref| (the Pallas kernel folds each row's
+keys in blocks with an online softmax, the plain version in one pass: f32
+sums in other orders); bfloat16 |Δ| ≤ 2⁻⁷·|ref| + 1e-5·max|ref| (one bf16
+ulp: both sides round an f32 result whose last bits may differ). Against
+``attention_ref`` only rows that see at least one key are compared: a row
+that sees none is 0 in both kernels and the mean of v in the oracle.
+"""
+import numpy as np
+import pytest
+
+from torch_parity import assert_close
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import kernel as j_kernel  # noqa: E402
+from repro.kernels.flash_attention import ops as j_ops  # noqa: E402
+from repro.kernels.flash_attention import ref as j_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as t_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as t_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as t_ref  # noqa: E402
+
+#: (B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset)
+CASES = [
+    (1, 2, 2, 64, 64, 64, True, None, 0),
+    (2, 4, 2, 100, 100, 64, False, None, 0),  # grp 2, a ragged length (no 8-divisor)
+    (1, 8, 2, 48, 80, 64, True, None, 32),  # grp 4, Sq < Sk, q_offset = Sk - Sq
+    (1, 4, 4, 96, 96, 128, True, 24, 0),  # sliding window, hd 128
+    (2, 4, 1, 40, 72, 64, False, 16, 20),  # window without causality, grp 4
+    (1, 2, 1, 36, 36, 64, True, 8, 0),  # grp 2, window, ragged
+]
+IDS = ["causal", "grp2-ragged", "grp4-offset", "window-hd128", "window-noncausal", "grp2-window"]
+
+
+def inputs(B, Hq, Hkv, Sq, Sk, hd, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Hq, Sq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, Sk, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, Sk, hd)).astype(np.float32)
+    return q, k, v
+
+
+def seen_rows(Sq, Sk, causal, window, q_offset):
+    """(Sq,) bool: the query rows that see at least one key."""
+    qp = q_offset + np.arange(Sq)[:, None]
+    kp = np.arange(Sk)[None, :]
+    seen = np.ones((Sq, Sk), bool)
+    if causal:
+        seen &= kp <= qp
+    if window is not None:
+        seen &= qp - kp < window
+    return seen.any(axis=1)
+
+
+def pallas(q, k, v, causal, window, q_offset, dtype):
+    Sq, Sk = q.shape[2], k.shape[2]
+    j = [jnp.asarray(x, dtype) for x in (q, k, v)]
+    out = j_kernel.flash_attention_fwd(
+        *j, causal=causal, window=window, q_offset=q_offset,
+        block_q=j_ops._pick_block(Sq), block_k=j_ops._pick_block(Sk), interpret=True,
+    )
+    return np.asarray(out.astype(jnp.float32))
+
+
+def to_torch(arrays, dtype):
+    return [torch.from_numpy(x).to(dtype) for x in arrays]
+
+
+def within(got, want, dtype, what):
+    scale = float(np.abs(want).max())
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    assert_close(got, want, atol=1e-5 * scale, rtol=rtol, what=what)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plain_version_matches_the_pallas_kernel(case, dtype):
+    B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset = case
+    q, k, v = inputs(B, Hq, Hkv, Sq, Sk, hd, seed=Sq + Sk)
+    want = pallas(q, k, v, causal, window, q_offset,
+                  jnp.float32 if dtype == torch.float32 else jnp.bfloat16)
+    before = t_kernel.flash_attention_fwd.launches
+    got = t_kernel.flash_attention_fwd(*to_torch((q, k, v), dtype), causal=causal,
+                                       window=window, q_offset=q_offset)
+    assert t_kernel.flash_attention_fwd.launches == before  # a CPU tensor launches nothing
+    assert got.dtype == dtype and tuple(got.shape) == (B, Hq, Sq, hd)
+    within(got.float().numpy(), want, dtype, "plain vs Pallas interpret")
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_version_and_oracle_match_the_reference_oracle(case):
+    """float32: the port's plain version against the reference's
+    ``attention_ref`` on the rows that see a key, and the port's
+    ``attention_ref`` against the reference's on every row."""
+    B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset = case
+    q, k, v = inputs(B, Hq, Hkv, Sq, Sk, hd, seed=Sq * Sk)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = np.asarray(j_ref.attention_ref(*(jnp.asarray(x) for x in (q, k, v)), **kw))
+    tq, tk, tv = to_torch((q, k, v), torch.float32)
+    within(t_ref.attention_ref(tq, tk, tv, **kw).numpy(), want, torch.float32, "oracle")
+    rows = seen_rows(Sq, Sk, causal, window, q_offset)
+    got = t_kernel.flash_attention_plain(tq, tk, tv, **kw).numpy()
+    within(got[:, :, rows], want[:, :, rows], torch.float32, "plain vs oracle")
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [(True, None, -8), (False, 8, 0)],
+                         ids=["before-first-key", "window-past-last-key"])
+def test_a_row_that_sees_no_key_is_zero_as_in_the_pallas_kernel(causal, window, q_offset):
+    """Rows with no key in sight: the Pallas kernel divides a zero sum by
+    max(l, 1e-30) and gives 0; so does the port's kernel function. The
+    oracle's softmax over all -1e30 scores gives the mean of v instead."""
+    Sq, Sk = 32, 24
+    q, k, v = inputs(1, 2, 1, Sq, Sk, 64, seed=9)
+    rows = seen_rows(Sq, Sk, causal, window, q_offset)
+    assert 0 < rows.sum() < Sq
+    want = pallas(q, k, v, causal, window, q_offset, jnp.float32)
+    got = t_kernel.flash_attention_fwd(*to_torch((q, k, v), torch.float32), causal=causal,
+                                       window=window, q_offset=q_offset).numpy()
+    assert np.all(want[:, :, ~rows] == 0.0) and np.all(got[:, :, ~rows] == 0.0)
+    within(got, want, torch.float32, "plain vs Pallas interpret")
+    oracle = t_ref.attention_ref(*to_torch((q, k, v), torch.float32), causal=causal,
+                                 window=window, q_offset=q_offset).numpy()
+    mean_v = np.repeat(v.mean(axis=2, keepdims=True), 2, axis=1)  # grp 2
+    assert_close(oracle[:, :, ~rows], np.broadcast_to(mean_v, oracle.shape)[:, :, ~rows],
+                 atol=1e-6, what="oracle on an unseen row")
+
+
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None), (True, 16)],
+                         ids=["noncausal", "causal", "window"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_model_layout_wrapper_matches_the_reference_ops(causal, window, dtype):
+    """``ops.flash_attention`` on (B, S, H, hd) against the reference's
+    ``ops.flash_attention`` (interpret mode), at whisper's reduced encoder
+    shape (16 frames, 4 query heads on 2 kv heads) and at a ragged 100."""
+    for S in (16, 100):
+        rng = np.random.default_rng(S)
+        q = rng.standard_normal((2, S, 4, 64)).astype(np.float32)
+        k = rng.standard_normal((2, S, 2, 64)).astype(np.float32)
+        v = rng.standard_normal((2, S, 2, 64)).astype(np.float32)
+        jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+        want = j_ops.flash_attention(*(jnp.asarray(x, jd) for x in (q, k, v)), causal=causal,
+                                     window=window, interpret=True)
+        got = t_ops.flash_attention(*to_torch((q, k, v), dtype), causal=causal, window=window)
+        assert tuple(got.shape) == (2, S, 4, 64) and got.dtype == dtype
+        within(got.float().numpy(), np.asarray(want.astype(jnp.float32)), dtype, f"S={S}")
+
+
+def test_model_layout_wrapper_refuses_a_window_that_is_not_static():
+    """A window that is not None or an int raises TypeError in both wrappers
+    (the reference's jit needs a hashable one to get that far: 4.0)."""
+    q = np.zeros((1, 8, 2, 64), np.float32)
+    with pytest.raises(TypeError, match="static window"):
+        j_ops.flash_attention(*(jnp.asarray(q),) * 3, window=4.0, interpret=True)
+    for window in (4.0, torch.tensor(4)):
+        with pytest.raises(TypeError, match="static window"):
+            t_ops.flash_attention(*(torch.from_numpy(q),) * 3, window=window)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    """Checked on every device, so the CPU path has the kernel's domain; a
+    device that is neither cpu nor cuda raises rather than falling back."""
+    q, k, v = to_torch(inputs(1, 4, 2, 16, 16, 64, seed=0), torch.float32)
+    fa = t_kernel.flash_attention_fwd
+    bad = [
+        lambda: fa(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                   v[..., :32].contiguous()),  # hd 32
+        lambda: fa(q.half(), k.half(), v.half()),  # dtype
+        lambda: fa(q, k.bfloat16(), v),  # mixed dtypes
+        lambda: fa(q, k[:, :1], v),  # k and v shapes differ
+        lambda: fa(q[:, :3], k, v),  # Hq % Hkv
+        lambda: fa(q.transpose(2, 3).contiguous().transpose(2, 3), k, v),  # not contiguous
+        lambda: fa(q, k, v, window=1 << 40),  # beyond int32
+        lambda: fa(q.to("meta"), k.to("meta"), v.to("meta")),  # neither cpu nor cuda
+    ]
+    before = fa.launches
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
+    assert fa.launches == before

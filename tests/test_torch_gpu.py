@@ -6,7 +6,8 @@ kernels with nvcc first). ``server_apply``, as in ``chip_smoke.py``: params and
 lanes abs 1e-6·max(1, max|p|), norms rel 1e-5, and two launches bitwise
 equal, for cohorts up to 64 clients (chunks of 32). The four codec kernels:
 bitwise equal to their plain versions, ties, signed zeros, half-quanta and
-non-finite values included.
+non-finite values included. The SSD scan and flash attention: y within one
+bf16 ulp of the plain version (f32: 1e-5·max|y|).
 """
 import numpy as np
 import pytest
@@ -341,3 +342,120 @@ def test_cuda_ssd_wrapper_refuses_instead_of_falling_back():
         with pytest.raises(ValueError):
             fn()
     assert SK.ssd_scan_fwd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The flash attention kernel
+# ---------------------------------------------------------------------------
+
+#: (B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset): ragged lengths, GQA grp
+#: 2 and 4, causal with q_offset, sliding windows, hd 64 and 128, rows that see
+#: no key, and whisper-large-v3's encoder layer
+FLASH_CASES = [
+    (1, 2, 2, 64, 64, 64, True, None, 0),
+    (2, 4, 2, 100, 100, 64, False, None, 0),
+    (1, 8, 2, 48, 80, 64, True, None, 32),
+    (1, 4, 4, 200, 200, 128, True, 24, 0),
+    (2, 4, 1, 40, 72, 64, False, 16, 20),
+    (1, 2, 1, 130, 130, 128, False, None, 0),
+    (1, 2, 1, 32, 24, 64, True, None, -8),
+    (1, 4, 2, 333, 333, 64, True, 100, 0),
+    (4, 20, 20, 1500, 1500, 64, False, None, 0),
+]
+
+
+def flash_inputs(B, Hq, Hkv, Sq, Sk, hd, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    return rnd(B, Hq, Sq, hd), rnd(B, Hkv, Sk, hd), rnd(B, Hkv, Sk, hd)
+
+
+def flash_error(got, want):
+    """Error in units of the tolerance: |Δ| ≤ rtol·|y| + 1e-5·max|y|, rtol 2⁻⁷
+    (one bf16 ulp: both sides sum in f32 in other orders, then round) or 0
+    for f32."""
+    y, y0 = got.float(), want.float()
+    rtol = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    bound = rtol * y0.abs() + 1e-5 * float(y0.abs().max())
+    return float(((y - y0).abs() / bound).max())
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_flash_attention_matches_plain(case, dtype):
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset = case
+    q, k, v = flash_inputs(B, Hq, Hkv, Sq, Sk, hd, dtype, seed=Sq + hd)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = FK.flash_attention_fwd.launches
+    got = FK.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert flash_error(got, FK.flash_attention_plain(q, k, v, **kw)) <= 1.0
+    assert bool(torch.isfinite(got).all())
+
+
+def test_cuda_flash_attention_ops_in_model_layout():
+    """ops.flash_attention on (B, S, H, hd) CUDA tensors launches the kernel
+    once and agrees with the plain version in kernel layout."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import kernel as FK, ops
+
+    q, k, v = flash_inputs(2, 4, 2, 100, 100, 64, torch.bfloat16, seed=1)
+    m = lambda t: t.transpose(1, 2)  # noqa: E731
+    before = FK.flash_attention_fwd.launches
+    got = ops.flash_attention(m(q), m(k), m(v), causal=False)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_fwd.launches == before + 1 and got.shape == (2, 100, 4, 64)
+    assert flash_error(m(got), FK.flash_attention_plain(q, k, v, causal=False)) <= 1.0
+
+
+def test_cuda_flash_attention_wrapper_refuses_instead_of_falling_back():
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v = flash_inputs(1, 4, 2, 64, 64, 64, torch.float32, seed=0)
+    before = FK.flash_attention_fwd.launches
+    bad = [
+        lambda: FK.flash_attention_fwd(q.half(), k.half(), v.half()),  # dtype
+        lambda: FK.flash_attention_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                                       v[..., :32].contiguous()),  # hd 32
+        lambda: FK.flash_attention_fwd(q, k.bfloat16(), v),  # mixed dtypes
+        lambda: FK.flash_attention_fwd(q[:, :3].contiguous(), k, v),  # Hq % Hkv
+        lambda: FK.flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v),
+        lambda: FK.flash_attention_fwd(q, k.cpu(), v),  # mixed devices
+    ]
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
+    assert FK.flash_attention_fwd.launches == before
+
+
+def test_cuda_whisper_generate_matches_the_cpu():
+    """Reduced whisper-large-v3, float32 compute, the same weights and inputs:
+    ``generate(use_pallas=True)`` on the card (the flash kernel in each of the
+    2 encoder layers, once per prefill) gives the CPU's tokens."""
+    _need_cuda()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("whisper-large-v3").reduced(), compute_dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen, dtype=torch.int32)
+    audio = torch.randn((2, cfg.n_audio_frames, cfg.d_model), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = FK.flash_attention_fwd.launches
+        out[dev] = generate(model, model.init(0, device=dev), prompt.to(dev), 8,
+                            audio_embed=audio.to(dev), use_pallas=True).cpu()
+        launched = FK.flash_attention_fwd.launches - before
+        assert launched == (cfg.n_encoder_layers if dev == "cuda" else 0), (dev, launched)
+    assert torch.equal(out["cpu"], out["cuda"]), (out["cpu"][:, 40:], out["cuda"][:, 40:])

@@ -65,6 +65,9 @@ def test_source_imports_neither_jax_nor_repro(path):
     "repro_torch.kernels.build", "repro_torch.kernels.ssd_scan.kernel",
     "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.ref",
     "repro_torch.models.ssm", "repro_torch.configs.mamba2_1_3b", "repro_torch.launch.serve",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.flash_attention.kernel",
+    "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.configs.whisper_large_v3",
 ])
 def test_serving_slice_modules_are_among_the_scanned(module):
     assert module in {_module_name(p) for p in SOURCES if p.suffix == ".py" and PKG in p.parents}

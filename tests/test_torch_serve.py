@@ -1,7 +1,7 @@
 """The port's serving path — ``Model.forward/prefill/decode_step``, the caches
 and ``launch/serve.generate`` — against the JAX package at reduced
-mamba2-1.3b and photon-75m, same weights (carried across by key path) and
-same tokens.
+mamba2-1.3b and photon-75m (whisper-large-v3: ``test_torch_whisper.py``),
+same weights (carried across by key path) and same tokens.
 
 Tolerances, all at ``compute_dtype="float32"``: logits and cache leaves
 |Δ| ≤ 1e-5·max|ref| over the tensor — each layer passes f32 products of width
@@ -154,36 +154,60 @@ def test_prefill_use_pallas_on_the_cpu_matches_the_plain_path():
 
 
 def test_use_pallas_raises_only_where_the_reference_takes_flash_attention(monkeypatch):
-    """The reference sends self-attention without ALiBi to its Pallas flash
-    kernel when the window is None or an int; the port raises there. Through
-    the model a layer's window is an entry of the window array (a jnp scalar
-    in the reference), so neither package takes that branch: the reference's
-    prefill makes no flash call and the port's runs and agrees."""
+    """Where each package calls flash attention under ``use_pallas`` (the
+    port's kernel is ported, so nothing raises any more; the name is kept).
+    The reference sends self-attention without ALiBi to its Pallas flash
+    kernel when the window is None or an int, and so does the port: a direct
+    ``attention(window=None)`` call reaches each package's ``flash_attention``
+    once, with the same output. Through a decoder a layer's window is an entry
+    of the window array (a jnp scalar in the reference, a 0-d tensor in the
+    port), so a rope photon prefill calls it in neither package. Whisper's
+    encoder calls ``attention`` with no window: the port calls the kernel once
+    per encoder layer (2), the reference once for its scanned body."""
     import repro.kernels.flash_attention.ops as j_fa
+    import repro_torch.kernels.flash_attention.ops as t_fa
     from repro.models import attention as j_attention
 
-    calls = []
-    real = j_fa.flash_attention
-    monkeypatch.setattr(j_fa, "flash_attention",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    calls = {"reference": 0, "port": 0}
+
+    def counted(name, real):
+        def fn(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+        return fn
+
+    monkeypatch.setattr(j_fa, "flash_attention", counted("reference", j_fa.flash_attention))
+    monkeypatch.setattr(t_fa, "flash_attention", counted("port", t_fa.flash_attention))
     jm, tm, jp, tp = pair("photon-75m", pos_embedding="rope")
     layer = lambda p: p["segments"][0]["pos0"]["mixer"]  # noqa: E731
     x = np.random.default_rng(7).standard_normal((1, 16, jm.cfg.d_model)).astype(np.float32)
     j_layer = jax.tree_util.tree_map(lambda a: a[0], layer(jp))
-    j_attention.attention(jm.cfg, j_layer, jnp.asarray(x), positions=jnp.arange(16),
-                          window=None, use_pallas=True)
-    assert len(calls) == 1
+    jy, _ = j_attention.attention(jm.cfg, j_layer, jnp.asarray(x), positions=jnp.arange(16),
+                                  window=None, use_pallas=True)
     t_layer = {k: v[0] for k, v in layer(tp).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_attention.attention(tm.cfg, t_layer, torch.from_numpy(x),
-                              positions=torch.arange(16), window=None, use_pallas=True)
+    ty, _ = t_attention.attention(tm.cfg, t_layer, torch.from_numpy(x),
+                                  positions=torch.arange(16), window=None, use_pallas=True)
+    assert calls == {"reference": 1, "port": 1}
+    close(ty, jy, "direct flash attention call")
 
-    calls.clear()
+    calls.update(reference=0, port=0)
     toks = prompt(jm.cfg, 1, 16, seed=8)
     jl, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, use_pallas=True)
     tl, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, use_pallas=True)
-    assert calls == []
+    assert calls == {"reference": 0, "port": 0}
     close(tl, jl, "rope prefill under use_pallas")
+
+    jm, tm, jp, tp = pair("whisper-large-v3")
+    toks = prompt(jm.cfg, 1, 16, seed=9)
+    aud = np.random.default_rng(9).standard_normal(
+        (1, jm.cfg.n_audio_frames, jm.cfg.d_model)).astype(np.float32)
+    jl, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks), "audio_embed": jnp.asarray(aud)},
+                       use_pallas=True)
+    tl, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks),
+                            "audio_embed": torch.from_numpy(aud)}, use_pallas=True)
+    assert calls == {"reference": 1, "port": tm.cfg.n_encoder_layers} and \
+        tm.cfg.n_encoder_layers == 2
+    close(tl, jl, "whisper prefill under use_pallas")
 
 
 @pytest.mark.parametrize("arch,calls", [("qwen3-1.7b", 0), ("gemma3-4b", 0), ("photon-75m", 0),
@@ -242,6 +266,66 @@ def test_mamba2_checkpoints_cross_over(tmp_path):
     assert sorted(got) == sorted(want)
     for k in want:
         assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("helper", ["tree_flatten", "tree_map", "tree_stack",
+                                    "flatten_with_paths", "int8_payload_leaves"])
+def test_tree_walks_release_their_leaves_without_the_garbage_collector(helper):
+    """A tree walk leaves no reference cycle behind: once its result is
+    dropped, the leaves it saw are freed at once, not when the cyclic garbage
+    collector next runs (on the card that held a prefill's per-layer caches,
+    1.1 GB at full-width whisper, past the end of the call)."""
+    import gc
+    import weakref
+
+    from repro_torch import tree as T
+    from repro_torch.core.compression import int8_payload_leaves
+
+    calls = {
+        "tree_flatten": lambda t: T.tree_flatten({"a": [t, 1]}),
+        "tree_map": lambda t: T.tree_map(lambda x: x, {"a": [t]}),
+        "tree_stack": lambda t: T.tree_stack([{"a": t}, {"a": t}]),
+        "flatten_with_paths": lambda t: T.flatten_with_paths({"a": [t]}),
+        "int8_payload_leaves": lambda t: int8_payload_leaves({"a": {"q": t, "scale": t}}),
+    }
+    gc.disable()
+    try:
+        t = torch.ones(3)
+        ref = weakref.ref(t)
+        out = calls[helper](t)
+        del out, t
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+def test_prefill_releases_per_layer_caches_without_the_garbage_collector(monkeypatch):
+    """After a prefill only the stacked cache holds the per-layer k/v it was
+    built from: nothing waits for the garbage collector."""
+    import gc
+    import weakref
+
+    jm, tm, _, tp = pair("whisper-large-v3")
+    refs = []
+    real = t_attention.attention
+
+    def spy(*a, **k):
+        y, c = real(*a, **k)
+        if c:
+            refs.extend([weakref.ref(c["k"]), weakref.ref(c["v"])])
+        return y, c
+
+    monkeypatch.setattr(t_attention, "attention", spy)
+    toks = prompt(jm.cfg, 1, 12, seed=10)
+    aud = np.zeros((1, jm.cfg.n_audio_frames, jm.cfg.d_model), np.float32)
+    gc.disable()
+    try:
+        _, cache = tm.prefill(tp, {"tokens": torch.from_numpy(toks),
+                                   "audio_embed": torch.from_numpy(aud)})
+        assert len(refs) == 2 * 2 * jm.cfg.n_layers  # self and cross k/v per layer
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
 
 
 @pytest.mark.parametrize("arch", ARCHS)

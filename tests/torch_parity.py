@@ -139,7 +139,8 @@ def _report() -> None:
 
 def _report_serving() -> None:
     """Print the measured serving parity errors, relative to max|ref|, at the
-    inputs ``test_torch_ssm.py`` and ``test_torch_serve.py`` use."""
+    inputs ``test_torch_ssm.py``, ``test_torch_serve.py``,
+    ``test_torch_whisper.py`` and ``test_torch_flash_attention.py`` use."""
     import sys
     from pathlib import Path
 
@@ -171,14 +172,32 @@ def _report_serving() -> None:
     jo, jc = j_ssm.ssm_block(jcfg, jp, jnp.asarray(x), cache={})
     to, tc = t_ssm.ssm_block(tcfg, tp, torch.from_numpy(x), cache={})
     print(f"ssm_block prefill: out {rel(to, jo):.2e}, ssd cache {rel(tc['ssd'], jc['ssd']):.2e}")
-    for arch in SV.ARCHS:
+    for arch in SV.ARCHS + ["whisper-large-v3"]:
         jm, tm, jp, tp = SV.pair(arch)
         toks = SV.prompt(jm.cfg, 2, 40, seed=40)
-        jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)})
-        tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)})
+        jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+        if jm.cfg.enc_dec:
+            aud = np.random.default_rng(40).standard_normal(
+                (2, jm.cfg.n_audio_frames, jm.cfg.d_model)).astype(np.float32)
+            jb["audio_embed"], tb["audio_embed"] = jnp.asarray(aud), torch.from_numpy(aud)
+        jl, jc = jm.prefill(jp, jb)
+        tl, tc = tm.prefill(tp, tb)
         jf, tf = jax_flat(jc), torch_flat(tc)
         print(f"{arch} reduced prefill: logits {rel(tl, jl):.2e}, worst cache leaf "
               f"{max(rel(tf[k], jf[k]) for k in jf):.2e}")
+
+    from repro.kernels.flash_attention import ops as j_fa
+    from repro_torch.kernels.flash_attention import ops as t_fa
+
+    for causal, window in ((False, None), (True, None), (True, 16)):
+        rng = np.random.default_rng(100)
+        q, k, v = (rng.standard_normal((2, 100, h, 64)).astype(np.float32) for h in (4, 2, 2))
+        want = j_fa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    causal=causal, window=window, interpret=True)
+        got = t_fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                   causal=causal, window=window)
+        print(f"flash attention plain vs Pallas interpret S=100 grp 2 causal={causal} "
+              f"window={window}: {rel(got, want):.2e}")
 
 
 def _topk_full_width(k_fraction: float = 0.05, seed: int = 0) -> None:
