@@ -9,8 +9,8 @@ Phases, one JSON line each:
 
   env           torch/CUDA versions and the card's name and power limit
   build         compiles every CUDA source of the port from ``src/repro_torch/csrc``
-                (the two fedcore sources, ssd_scan.cu and flash_attention.cu),
-                one nvcc each, all at once
+                (the two fedcore sources, ssd_scan.cu, flash_attention.cu,
+                flash_decode.cu and rmsnorm.cu), one nvcc each, all at once
   server_apply  the fused server-step kernel against its plain PyTorch version at
                 photon-75m's flat size (Np = 74,104,832, C = 4) for FedAvg,
                 FedMom and FedAdam, with and without DP noise, and FedAvg at
@@ -31,6 +31,22 @@ Phases, one JSON line each:
                 q_offset, sliding windows, GQA groups of 2 and 4, hd 128,
                 f32, ragged lengths, rows that see no key): max error,
                 kernel / plain / F.scaled_dot_product_attention / bound times
+  flash_decode  the flash decode kernel through its entry point ``ops.flash_decode``
+                (model-layout caches read in place) at qwen3-1.7b's decode_32k
+                attention layer (B = 128, Hq = 16, Hkv = 8, S = 32768, hd = 128,
+                bf16; 17.18 GB of cache) and gemma3-4b's long_500k global and
+                local (window 1024) layers (B = 1, Hq = 8, Hkv = 4, S = 524288,
+                hd = 256, bf16), each call with the launch counts zeroed just
+                before and read just after; against its plain version (on the
+                first 8 rows at B = 128) and at small masked, GQA and ragged
+                cases in bf16 and f32: max error, kernel / plain /
+                F.scaled_dot_product_attention (and the kernels it ran) / bound
+                times over the bytes the seen keys need
+  rmsnorm       the RMSNorm kernel through ``ops.rmsnorm`` at qwen3-1.7b's
+                prefill_32k activations (1,048,576 x 2048, bf16) and at
+                mamba2-1.3b's serve prefill rows (8192 x 2048, bf16), counted
+                as above, and at small cases (ragged widths, rows too long for
+                registers, f32): max error, kernel / plain / F.rms_norm / bound
   check         a reduced photon round on the card agrees with the same round on
                 the CPU (float32 compute), with the float32 and the top-k uplink;
                 reduced mamba2-1.3b, photon-75m and whisper-large-v3 ``generate``
@@ -60,6 +76,10 @@ Phases, one JSON line each:
                 launches per prefill, none per decode step, no other kernel;
                 the serve numbers and profile as above
   kernels       one line {"kernels": [...]} with every kernel's numbers
+
+No model path launches flash_decode or rmsnorm (none does in the JAX package
+either): the train and serve phases hold their counts at 0, and their
+launches in the kernels line are those of the entry-point calls above.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without a CUDA device the script exits 2 before printing a result.
@@ -99,6 +119,29 @@ FLASH_SMALL = [
     (2, 16, 4, 333, 333, 64, True, 64, 0),  # GQA grp 4, window, ragged
     (1, 4, 2, 64, 40, 64, True, None, -16),  # rows that see no key
 ]
+#: (case, B, Hq, Hkv, S, hd, window), kv_len = S on every row: qwen3-1.7b's
+#: attention at decode_32k, gemma3-4b's global and local layers at long_500k
+DECODE_CASES = [
+    ("qwen3-1.7b decode_32k", 128, 16, 8, 32768, 128, None),
+    ("gemma3-4b long_500k global", 1, 8, 4, 524288, 256, None),
+    ("gemma3-4b long_500k local", 1, 8, 4, 524288, 256, 1024),
+]
+#: rows the plain version takes at B = 128 (its f32 copies of all 128 would be 34 GB)
+DECODE_PLAIN_ROWS = 8
+#: small masked, GQA and ragged cases: (B, Hq, Hkv, S, hd, kv_len per row, window)
+DECODE_SMALL = [
+    (4, 8, 2, 1000, 64, (1000, 517, 0, 1), None),  # grp 4, ragged rows, an empty row
+    (3, 4, 4, 333, 32, (333, 100, 5), 64),  # grp 1, hd 32, window, kv_len < window
+    (2, 16, 2, 4097, 128, (4097, 2000), 100),  # grp 8, window
+    (2, 6, 2, 700, 256, (10, 700), 5000),  # grp 3, hd 256, window past the cache
+]
+#: (case, R, D) in bf16: qwen3-1.7b's prefill_32k activations, mamba2-1.3b's serve prefill
+RMS_CASES = [
+    ("qwen3-1.7b prefill_32k", 32 * 32768, 2048),
+    ("mamba2-1.3b serve prefill", 4 * 2048, 2048),
+]
+#: small cases: ragged widths (no 16-byte access), rows too long for registers
+RMS_SMALL = [(105, 1000), (3, 8192), (7, 4096), (64, 2048), (5, 12288)]
 NP_PHOTON_75M = 74_104_832  # photon-75m's 74,100,992 params padded to 8192-blocks
 COHORT = 4
 WIDE_COHORT = 40  # more clients than one server_apply launch holds (32)
@@ -151,9 +194,11 @@ def all_kernels() -> dict:
     """Every kernel wrapper of the port, by name (each counts its launches)."""
     from repro_torch.kernels.fedcore import kernel as K
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_decode import kernel as DK
+    from repro_torch.kernels.rmsnorm import kernel as RK
     from repro_torch.kernels.ssd_scan import kernel as SK
 
-    return {**K.KERNELS, **SK.KERNELS, **FK.KERNELS}
+    return {**K.KERNELS, **SK.KERNELS, **FK.KERNELS, **DK.KERNELS, **RK.KERNELS}
 
 
 def zero_launches() -> None:
@@ -508,6 +553,19 @@ def phase_ssd_scan() -> dict:
     return full
 
 
+def ulp_units(got, want) -> float:
+    """Error in units of the tolerance |Δ| ≤ rtol·|y| + 1e-5·max|y|, rtol 2⁻⁷
+    for bf16 (one bf16 ulp: both sides sum in f32 in other orders, then
+    round), 0 for f32."""
+    import torch
+
+    y, y0 = got.float(), want.float()
+    rtol = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    bound = rtol * y0.abs() + 1e-5 * y0.abs().max()
+    err = (y - y0).abs()
+    return float(torch.where(err == 0, torch.zeros_like(err), err / bound).max())
+
+
 def flash_bound(B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset, itemsize: int = 2):
     """(bytes, flops) flash attention must move and do: q, k, v and o each
     read or written once in ``itemsize`` bytes; both products at 2 flops per
@@ -542,15 +600,13 @@ def flash_case(case, dtype, gen) -> dict:
     got = FK.flash_attention_fwd(q, k, v, **kw)
     want = FK.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    y, y0 = got.float(), want.float()
-    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
-    err = float((y - y0).abs().max())
-    units = float(((y - y0).abs() / (rtol * y0.abs() + 1e-5 * y0.abs().max())).max())
+    units = ulp_units(got, want)
     r = {"B": B, "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Sk": Sk, "hd": hd, "causal": causal,
          "window": window, "q_offset": q_offset, "dtype": str(dtype).replace("torch.", ""),
-         "max_abs_err": err, "err_in_tolerance_units": units, "max_abs_y": float(y0.abs().max())}
-    assert units <= 1.0 and bool(torch.isfinite(y).all()), r
-    del got, want, y, y0
+         "max_abs_err": float((got.float() - want.float()).abs().max()),
+         "err_in_tolerance_units": units, "max_abs_y": float(want.float().abs().max())}
+    assert units <= 1.0 and bool(torch.isfinite(got).all()), r
+    del got, want
     nbytes, flops = flash_bound(*case, itemsize=q.element_size())
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_OPS_PER_S * 1e3
     kr, vr = (k, v) if Hkv == Hq else (k.repeat_interleave(Hq // Hkv, 1),
@@ -580,6 +636,235 @@ def phase_flash_attention() -> dict:
                 flash_case(case, dtype, gen)
     torch.cuda.empty_cache()
     return encoder
+
+
+# ---------------------------------------------------------------------------
+# Flash decode and RMSNorm, through their entry points
+# ---------------------------------------------------------------------------
+
+
+def entry_call(name: str, fn):
+    """One call of an entry point as a user makes it, the launch counts zeroed
+    just before and read just after: exactly one launch of ``name``. Returns
+    the output and that count."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    assert launches == {n: int(n == name) for n in launches}, (name, launches)
+    return out, launches[name]
+
+
+def decode_bound(B, Hq, Hkv, S, hd, kv_len, window, itemsize: int = 2):
+    """(bytes, flops) decode attention must move and do: q and o once, kv_len,
+    and the key and value rows each batch row sees, once per kv head; both
+    products at 2 flops per multiply-add for every query head."""
+    seen = 0
+    for n in kv_len:
+        lo = 0 if window is None else max(0, n - window)
+        seen += max(0, min(n, S) - lo)
+    nbytes = itemsize * (2 * B * Hq * hd + 2 * seen * Hkv * hd) + 4 * B
+    return nbytes, 4 * seen * Hq * hd
+
+
+def _bound_fields(nbytes: int, flops: int, kernel_ms: float) -> dict:
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "kernel_GBps": nbytes / (kernel_ms * 1e-3) / 1e9}
+
+
+def randn_cuda(shape, gen):
+    import torch
+
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+def device_and_host(call) -> dict:
+    """The device time of one call (its kernels under ``torch.profiler``) and
+    the host's time to enqueue one, without waiting for the card: where the
+    second is the larger, back-to-back calls (``kernel_ms``) wait on the host."""
+    import torch
+
+    prof = profile_device(call)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        call()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    return {"device_ms": prof["device_ms"], "device_kernels_ms": prof["top_kernels_ms"],
+            "host_enqueue_ms": host_ms}
+
+
+def _fill_randn(t, gen, rows: int) -> None:
+    """Fill a bf16 tensor with randn in slices of ``rows`` along dim 0 (the
+    f32 draw of the whole would need twice its size again)."""
+    for i in range(0, t.shape[0], rows):
+        t[i:i + rows] = randn_cuda(t[i:i + rows].shape, gen)
+
+
+def decode_case(case, gen) -> dict:
+    """One full-size decode layer: the entry point once (counted), its output
+    against the plain version, then kernel, plain and SDPA times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import kernel as DK, ops
+
+    name, B, Hq, Hkv, S, hd, window = case
+    q = randn_cuda((B, 1, Hq, hd), gen).bfloat16()
+    kc = torch.empty((B, S, Hkv, hd), dtype=torch.bfloat16, device="cuda")  # model layout
+    vc = torch.empty_like(kc)
+    _fill_randn(kc, gen, max(1, B // 16))
+    _fill_randn(vc, gen, max(1, B // 16))
+    kv_len = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    out, launches = entry_call("flash_decode",
+                               lambda: ops.flash_decode(q, kc, vc, kv_len, window=window))
+    k, v = kc.movedim(1, 2), vc.movedim(1, 2)  # (B, Hkv, S, hd) views of the caches
+    n = min(B, DECODE_PLAIN_ROWS)
+    want = DK.flash_decode_plain(q[:n, 0], k[:n], v[:n], kv_len[:n], window=window)
+    torch.cuda.synchronize()
+    units = ulp_units(out[:n, 0], want)
+    err = float((out[:n, 0].float() - want.float()).abs().max())
+    r = {"case": name, "B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "hd": hd, "window": window,
+         "kv_len": S, "dtype": "bfloat16", "launches": launches, "compared_rows": n,
+         "max_abs_err": err,
+         "err_in_tolerance_units": units, "max_abs_y": float(want.float().abs().max()),
+         "n_split": DK.n_splits(B, Hq, Hkv, S, window, DK.sm_count(0))}
+    assert units <= 1.0 and bool(torch.isfinite(out).all()), r
+    del out, want
+
+    if window is None:
+        lens = [kv_len]
+    else:  # 16 windows in turn (67 MB together): no launch finds its keys in the 50 MB L2
+        lens = [torch.full((B,), S - i * window, dtype=torch.int32, device="cuda")
+                for i in range(16)]
+    turn = iter(range(1 << 30))
+    call = lambda: DK.flash_decode_fwd(q[:, 0], k, v, lens[next(turn) % len(lens)],  # noqa: E731
+                                       window=window)
+    kernel_ms = time_ms(call, reps=16, warmup=2)
+
+    def plain_all_rows():  # the plain version over every row, DECODE_PLAIN_ROWS at a time
+        for i in range(0, B, n):
+            DK.flash_decode_plain(q[i:i + n, 0], k[i:i + n], v[i:i + n], kv_len[i:i + n],
+                                  window=window)
+
+    plain_ms = time_ms(plain_all_rows, reps=2, warmup=1)
+    pos = torch.arange(S, device="cuda")[None]
+    mask = pos < kv_len[:, None]
+    if window is not None:
+        mask &= pos > (kv_len - 1 - window)[:, None]
+    qh = q.transpose(1, 2)  # (B, Hq, 1, hd)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, k, v, attn_mask=mask[:, None, None], enable_gqa=True)
+    try:
+        library_ms = time_ms(sdpa, reps=5, warmup=1)
+        library_kernels = list(profile_device(sdpa)["top_kernels_ms"])[:3]
+    except torch.cuda.OutOfMemoryError:
+        library_ms, library_kernels = None, ["out of device memory"]
+    nbytes, flops = decode_bound(B, Hq, Hkv, S, hd, [S] * B, window)
+    r.update(kernel_ms=kernel_ms, **device_and_host(call), plain_ms=plain_ms,
+             library_ms=library_ms, library_kernels=library_kernels,
+             **_bound_fields(nbytes, flops, kernel_ms))
+    emit("flash_decode", **r)
+    del q, kc, vc, k, v, mask, lens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_flash_decode() -> dict:
+    import torch
+    from repro_torch.kernels.flash_decode import kernel as DK
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    full = {case[0]: decode_case(case, gen) for case in DECODE_CASES}
+    for B, Hq, Hkv, S, hd, kv_len, window in DECODE_SMALL:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn_cuda((B, Hq, hd), gen).to(dtype)
+            k, v = (randn_cuda((B, Hkv, S, hd), gen).to(dtype) for _ in range(2))
+            kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+            got = DK.flash_decode_fwd(q, k, v, kl, window=window)
+            want = DK.flash_decode_plain(q, k, v, kl, window=window)
+            torch.cuda.synchronize()
+            units = ulp_units(got, want)
+            r = {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "hd": hd, "kv_len": list(kv_len),
+                 "window": window, "dtype": str(dtype).replace("torch.", ""),
+                 "max_abs_err": float((got.float() - want.float()).abs().max()),
+                 "err_in_tolerance_units": units}
+            emit("flash_decode", **r)
+            seen = torch.tensor([n > 0 and window != 0 for n in kv_len], device="cuda")
+            assert units <= 1.0 and bool((got[~seen] == 0).all()), r
+    return full
+
+
+def rms_units(got, want) -> float:
+    """Error in units of the tolerance: bf16 |Δ| ≤ one bf16 ulp of y; f32
+    |Δ| ≤ 2e-6·|y| (the sum of squares taken in another order)."""
+    import torch
+
+    y, y0 = got.float(), want.float()
+    if got.dtype == torch.bfloat16:
+        bound = torch.ldexp(torch.ones_like(y0), torch.frexp(y0.abs())[1] - 8)
+    else:
+        bound = 2e-6 * y0.abs()
+    err = (y - y0).abs()
+    return float(torch.where(err == 0, torch.zeros_like(err), err / bound).max())
+
+
+def rms_case(name: str, R: int, D: int, gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import kernel as RK, ops
+
+    x = torch.empty((R, D), dtype=torch.bfloat16, device="cuda")
+    _fill_randn(x, gen, 65536)
+    scale = 1.0 + 0.1 * randn_cuda((D,), gen)
+    y, launches = entry_call("rmsnorm", lambda: ops.rmsnorm(x, scale))
+    want = RK.rmsnorm_plain(x, scale)
+    torch.cuda.synchronize()
+    units = rms_units(y, want)
+    r = {"case": name, "R": R, "D": D, "dtype": "bfloat16", "launches": launches,
+         "max_abs_err": float((y.float() - want.float()).abs().max()),
+         "err_in_tolerance_units": units}
+    assert units <= 1.0 and bool(torch.isfinite(y).all()), r
+    del y, want
+    call = lambda: RK.rmsnorm_fwd(x, scale)  # noqa: E731
+    kernel_ms = time_ms(call, reps=10, warmup=2)
+    plain_ms = time_ms(lambda: RK.rmsnorm_plain(x, scale), reps=3, warmup=1)
+    scale_x = scale.to(x.dtype)  # F.rms_norm takes its weight in x's dtype
+    library_ms = time_ms(lambda: F.rms_norm(x, (D,), scale_x, 1e-6), reps=10, warmup=2)
+    nbytes, flops = 2 * R * D * x.element_size() + 4 * D, 4 * R * D
+    r.update(kernel_ms=kernel_ms, **device_and_host(call), plain_ms=plain_ms,
+             library_ms=library_ms, **_bound_fields(nbytes, flops, kernel_ms))
+    emit("rmsnorm", **r)
+    del x
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_rmsnorm() -> dict:
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel as RK
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    full = {name: rms_case(name, R, D, gen) for name, R, D in RMS_CASES}
+    for R, D in RMS_SMALL:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn_cuda((R, D), gen).to(dtype)
+            scale = 1.0 + 0.1 * randn_cuda((D,), gen)
+            got, want = RK.rmsnorm_fwd(x, scale), RK.rmsnorm_plain(x, scale)
+            torch.cuda.synchronize()
+            r = {"R": R, "D": D, "dtype": str(dtype).replace("torch.", ""),
+                 "max_abs_err": float((got.float() - want.float()).abs().max()),
+                 "err_in_tolerance_units": rms_units(got, want)}
+            emit("rmsnorm", **r)
+            assert r["err_in_tolerance_units"] <= 1.0, r
+    return full
 
 
 def phase_serve_check() -> None:
@@ -861,6 +1146,8 @@ def main() -> int:
     codecs = phase_codecs()
     ssd = phase_ssd_scan()
     flash = phase_flash_attention()
+    decode = phase_flash_decode()
+    rms = phase_rmsnorm()
     phase_check()
     phase_serve_check()
     launches = {uplink: phase_train(uplink) for uplink in TRAIN_KERNELS}
@@ -909,6 +1196,24 @@ def main() -> int:
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
         "library_note": "F.scaled_dot_product_attention at the encoder layer's shape",
     })
+    for name, line, full, source, note in (
+            ("flash_decode", 75, decode, "flash_decode.cu",
+             "F.scaled_dot_product_attention, boolean mask, enable_gqa=True"),
+            ("rmsnorm", 28, rms, "rmsnorm.cu", "F.rms_norm, weight in x's dtype")):
+        head = next(iter(full.values()))  # the largest case
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
+            # the entry-point calls' counts: no model path calls it
+            "launches": sum(r["launches"] for r in full.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in full.values()),
+            "ms": head["kernel_ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library_note": note, "case": head["case"],
+            "cases": [{k: r[k] for k in ("case", "kernel_ms", "device_ms", "host_enqueue_ms",
+                                         "bound_ms", "plain_ms", "library_ms")}
+                      for r in full.values()],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

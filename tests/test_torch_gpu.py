@@ -6,8 +6,11 @@ kernels with nvcc first). ``server_apply``, as in ``chip_smoke.py``: params and
 lanes abs 1e-6·max(1, max|p|), norms rel 1e-5, and two launches bitwise
 equal, for cohorts up to 64 clients (chunks of 32). The four codec kernels:
 bitwise equal to their plain versions, ties, signed zeros, half-quanta and
-non-finite values included. The SSD scan and flash attention: y within one
-bf16 ulp of the plain version (f32: 1e-5·max|y|).
+non-finite values included. The SSD scan, flash attention and flash decode:
+y within one bf16 ulp of the plain version (f32: 1e-5·max|y|). RMSNorm: bf16
+within one bf16 ulp, f32 within 2e-6·|y|. Flash decode and RMSNorm also give
+the same bits on two launches, and raise rather than fall back when their
+kernel cannot be built.
 """
 import numpy as np
 import pytest
@@ -459,3 +462,182 @@ def test_cuda_whisper_generate_matches_the_cpu():
         launched = FK.flash_attention_fwd.launches - before
         assert launched == (cfg.n_encoder_layers if dev == "cuda" else 0), (dev, launched)
     assert torch.equal(out["cpu"], out["cuda"]), (out["cpu"][:, 40:], out["cuda"][:, 40:])
+
+
+# ---------------------------------------------------------------------------
+# The flash decode kernel
+# ---------------------------------------------------------------------------
+
+#: (B, Hq, Hkv, S, hd, kv_len per row, window): GQA groups 1, 2, 3, 4 and 8,
+#: every head dim, ragged S, empty rows, windows shorter and longer than the
+#: cache, one row long enough for many splits
+DECODE_CASES = [
+    (3, 4, 4, 100, 64, (100, 37, 0), None),
+    (2, 4, 2, 200, 128, (200, 150), 64),
+    (2, 8, 2, 96, 32, (96, 10), 50),
+    (2, 4, 1, 72, 256, (72, 1), None),
+    (2, 6, 2, 333, 64, (333, 300), 1),
+    (2, 16, 2, 1000, 128, (999, 1000), None),
+    (1, 8, 4, 70001, 256, (70001,), None),
+    (1, 8, 4, 70001, 256, (65536,), 1024),
+    (4, 16, 8, 4097, 128, (4097, 4000, 1, 0), 5000),
+]
+
+
+def decode_inputs(B, Hq, Hkv, S, hd, kv_len, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    return (rnd(B, Hq, hd), rnd(B, Hkv, S, hd), rnd(B, Hkv, S, hd),
+            torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_flash_decode_matches_plain(case, dtype):
+    """Within one bf16 ulp of the plain version (f32: 1e-5·max|y|), rows
+    that see no key exactly 0, and two launches bitwise equal."""
+    _need_cuda()
+    from repro_torch.kernels.flash_decode import kernel as DK
+
+    B, Hq, Hkv, S, hd, kv_len, window = case
+    q, k, v, kl = decode_inputs(B, Hq, Hkv, S, hd, kv_len, dtype, seed=S + hd)
+    before = DK.flash_decode_fwd.launches
+    got = DK.flash_decode_fwd(q, k, v, kl, window=window)
+    again = DK.flash_decode_fwd(q, k, v, kl, window=window)
+    torch.cuda.synchronize()
+    assert DK.flash_decode_fwd.launches == before + 2
+    assert got.dtype == dtype and got.shape == q.shape and torch.equal(got, again)
+    want = DK.flash_decode_plain(q, k, v, kl, window=window)
+    assert flash_error(got, want) <= 1.0
+    empty = [i for i, n in enumerate(kv_len) if n <= 0 or window == 0]
+    assert all(bool((got[i] == 0).all()) for i in empty)
+
+
+def test_cuda_flash_decode_ops_reads_the_model_layout_cache_in_place():
+    """ops.flash_decode on (B, S, Hkv, hd) CUDA caches with a scalar kv_len
+    launches the kernel once on strided views and agrees with the plain
+    version in kernel layout."""
+    _need_cuda()
+    from repro_torch.kernels.flash_decode import kernel as DK, ops
+
+    q, k, v, _ = decode_inputs(2, 8, 4, 3000, 128, (0, 0), torch.bfloat16, seed=2)
+    kc, vc = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    before = DK.flash_decode_fwd.launches
+    got = ops.flash_decode(q[:, None], kc, vc, 2900, window=700)
+    torch.cuda.synchronize()
+    assert DK.flash_decode_fwd.launches == before + 1 and got.shape == (2, 1, 8, 128)
+    kl = torch.full((2,), 2900, dtype=torch.int32, device="cuda")
+    assert flash_error(got[:, 0], DK.flash_decode_plain(q, k, v, kl, window=700)) <= 1.0
+
+
+def test_cuda_flash_decode_wrapper_refuses_instead_of_falling_back():
+    _need_cuda()
+    from repro_torch.kernels.flash_decode import kernel as DK
+
+    q, k, v, kl = decode_inputs(2, 4, 2, 64, 64, (64, 3), torch.float32, seed=0)
+    shifted = torch.empty(k.numel() + 1, device="cuda")[1:].view(k.shape)  # 4-byte aligned
+    before = DK.flash_decode_fwd.launches
+    bad = [
+        lambda: DK.flash_decode_fwd(q.half(), k.half(), v.half(), kl),  # dtype
+        lambda: DK.flash_decode_fwd(q, k.bfloat16(), v, kl),  # mixed dtypes
+        lambda: DK.flash_decode_fwd(q, k, v, kl.long()),  # kv_len dtype
+        lambda: DK.flash_decode_fwd(q, k, v, kl.cpu()),  # mixed devices
+        lambda: DK.flash_decode_fwd(q, shifted, v, kl),  # rows not 16-byte aligned
+        lambda: DK.flash_decode_fwd(q, k[:, :, :, :48].contiguous(),
+                                    v[:, :, :, :48].contiguous(), kl),  # hd 48
+    ]
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
+    assert DK.flash_decode_fwd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The RMSNorm kernel
+# ---------------------------------------------------------------------------
+
+#: (shape, dtype): mamba2-1.3b's serve prefill rows, rows kept in registers and
+#: rows read twice, rows with no 16-byte access (D 1000 bf16, D 4101 f32),
+#: one element, and a width above 8192
+RMS_CASES = [
+    ((8192, 2048), torch.bfloat16),
+    ((3, 5, 7, 1000), torch.bfloat16),
+    ((7, 4096), torch.bfloat16),
+    ((3, 8192), torch.bfloat16),
+    ((4, 12288), torch.bfloat16),
+    ((9, 2048), torch.float32),
+    ((5, 4100), torch.float32),
+    ((6, 4101), torch.float32),
+    ((1, 1), torch.float32),
+    ((33, 64), torch.float32),
+]
+
+
+def rms_error(got, want):
+    """Error in units of the tolerance: f32 |Δ| ≤ 2e-6·|y| elementwise (the
+    sum of squares taken in another order); bf16 |Δ| ≤ one bf16 ulp of y."""
+    y, y0 = got.float(), want.float()
+    if got.dtype == torch.bfloat16:
+        bound = torch.ldexp(torch.ones_like(y0), torch.frexp(y0.abs())[1] - 8)
+    else:
+        bound = 2e-6 * y0.abs()
+    err = (y - y0).abs()
+    return float(torch.where(err == 0, torch.zeros_like(err), err / bound).max())
+
+
+@pytest.mark.parametrize("shape,dtype", RMS_CASES, ids=lambda c: str(c))
+def test_cuda_rmsnorm_matches_plain(shape, dtype):
+    _need_cuda()
+    from repro_torch.kernels.rmsnorm import kernel as RK, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(shape[-1])
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+    before = RK.rmsnorm_fwd.launches
+    got = ops.rmsnorm(x, scale)
+    again = ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert RK.rmsnorm_fwd.launches == before + 2
+    assert got.dtype == dtype and got.shape == x.shape and torch.equal(got, again)
+    want = RK.rmsnorm_plain(x.reshape(-1, shape[-1]), scale).reshape(shape)
+    assert rms_error(got, want) <= 1.0
+
+
+def test_cuda_rmsnorm_wrapper_refuses_instead_of_falling_back():
+    _need_cuda()
+    from repro_torch.kernels.rmsnorm import kernel as RK
+
+    x = torch.randn((4, 64), device="cuda")
+    s = torch.ones(64, device="cuda")
+    before = RK.rmsnorm_fwd.launches
+    bad = [
+        lambda: RK.rmsnorm_fwd(x.half(), s),  # dtype
+        lambda: RK.rmsnorm_fwd(x, s.cpu()),  # mixed devices
+        lambda: RK.rmsnorm_fwd(x.t(), s[:4]),  # not contiguous
+        lambda: RK.rmsnorm_fwd(x, s[:32]),  # scale shape
+    ]
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
+    assert RK.rmsnorm_fwd.launches == before
+
+
+def test_cuda_wrappers_raise_when_their_kernel_cannot_be_built(monkeypatch):
+    """No fallback to the plain version: with the build broken, a CUDA tensor
+    makes each new wrapper raise, and nothing is counted."""
+    _need_cuda()
+    from repro_torch.kernels.flash_decode import kernel as DK
+    from repro_torch.kernels.rmsnorm import kernel as RK
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+
+    q, k, v, kl = decode_inputs(1, 2, 1, 16, 64, (16,), torch.float32, seed=0)
+    x, s = torch.randn((2, 64), device="cuda"), torch.ones(64, device="cuda")
+    for mod, call in ((DK, lambda: DK.flash_decode_fwd(q, k, v, kl)),
+                      (RK, lambda: RK.rmsnorm_fwd(x, s))):
+        monkeypatch.setattr(mod, "_library", broken)
+        counts = (DK.flash_decode_fwd.launches, RK.rmsnorm_fwd.launches)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+        assert (DK.flash_decode_fwd.launches, RK.rmsnorm_fwd.launches) == counts

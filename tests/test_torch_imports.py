@@ -68,6 +68,10 @@ def test_source_imports_neither_jax_nor_repro(path):
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.flash_attention.kernel",
     "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.flash_attention.ref",
     "repro_torch.configs.whisper_large_v3",
+    "repro_torch.kernels.flash_decode", "repro_torch.kernels.flash_decode.kernel",
+    "repro_torch.kernels.flash_decode.ops", "repro_torch.kernels.flash_decode.ref",
+    "repro_torch.kernels.rmsnorm", "repro_torch.kernels.rmsnorm.kernel",
+    "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.rmsnorm.ref",
 ])
 def test_serving_slice_modules_are_among_the_scanned(module):
     assert module in {_module_name(p) for p in SOURCES if p.suffix == ".py" and PKG in p.parents}
