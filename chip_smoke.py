@@ -10,7 +10,8 @@ Phases, one JSON line each:
   env           torch/CUDA versions and the card's name and power limit
   build         compiles every CUDA source of the port from ``src/repro_torch/csrc``
                 (the two fedcore sources, ssd_scan.cu, flash_attention.cu,
-                flash_decode.cu and rmsnorm.cu), one nvcc each, all at once
+                flash_decode.cu and rmsnorm.cu), one nvcc each, all at once;
+                counts the HGMMA (wgmma) instructions in flash_attention's SASS
   server_apply  the fused server-step kernel against its plain PyTorch version at
                 photon-75m's flat size (Np = 74,104,832, C = 4) for FedAvg,
                 FedMom and FedAdam, with and without DP noise, and FedAvg at
@@ -29,8 +30,14 @@ Phases, one JSON line each:
                 whisper-large-v3's encoder layer (B = 4, H = 20, S = 1500,
                 hd = 64, bf16, non-causal) and at small cases (causal with
                 q_offset, sliding windows, GQA groups of 2 and 4, hd 128,
-                f32, ragged lengths, rows that see no key): max error,
-                kernel / plain / F.scaled_dot_product_attention / bound times
+                f32, ragged lengths, rows that see no key), bf16 and f32:
+                max error, kernel / plain / F.scaled_dot_product_attention /
+                bound times (bf16 against the tensor cores' peak, f32 against
+                the CUDA cores'), the exponentials' time at the SMs' ex2 rate,
+                device and host enqueue times; then
+                ``ops.flash_attention`` at the encoder layer on model-layout
+                (B, S, H, hd) tensors: exactly one device kernel under
+                torch.profiler, o contiguous and within the tolerance
   flash_decode  the flash decode kernel through its entry point ``ops.flash_decode``
                 (model-layout caches read in place) at qwen3-1.7b's decode_32k
                 attention layer (B = 128, Hq = 16, Hkv = 8, S = 32768, hd = 128,
@@ -108,6 +115,8 @@ MAMBA2_LAYERS = 48
 WHISPER_LAYERS = 32  # encoder layers: one flash_attention launch each per prefill
 WHISPER_PROMPT = 448 - SERVE_GEN  # prompt + new tokens = Whisper's 448-token text context
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+EXP_PER_SM_PER_CLOCK = 16  # MUFU ex2 throughput of one Hopper SM
+N_SMS = 132
 #: whisper-large-v3's encoder self-attention (B, Hq, Hkv, Sq, Sk, hd, causal,
 #: window, q_offset), then small cases of every other option the kernel takes
 FLASH_ENCODER = (4, 20, 20, 1500, 1500, 64, False, None, 0)
@@ -170,6 +179,15 @@ def gpu_name_and_power() -> str:
     return out[0].strip()
 
 
+def sm_clock_hz() -> float:
+    """The SM clock's maximum as ``nvidia-smi`` reports it (clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
+
+
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     """Device ms per call: ``reps`` calls issued back to back between one
     pair of CUDA events, after ``warmup`` calls. The host queues each call
@@ -219,8 +237,19 @@ def phase_build() -> dict:
     for source, (path, log) in built.items():
         ptxas = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
         emit("build", source=source, library=os.path.relpath(path, ROOT), ptxas=ptxas)
-    emit("build", seconds=seconds, sources=len(built))
-    return {"seconds": seconds}
+    # the bf16 flash kernel runs on the tensor cores: wgmma is HGMMA in the SASS
+    sass = subprocess.run([_cuobjdump(), "-sass", str(built["flash_attention.cu"][0])],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    emit("build", seconds=seconds, sources=len(built), flash_attention_sass_HGMMA=hgmma)
+    assert hgmma > 0, "flash_attention.cu has no HGMMA instruction"
+    return {"seconds": seconds, "flash_attention_sass_HGMMA": hgmma}
+
+
+def _cuobjdump() -> str:
+    import shutil
+
+    return shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 
 
 def _server_apply_case(opt: str, with_noise: bool, gen, dev: str = "cuda",
@@ -567,9 +596,10 @@ def ulp_units(got, want) -> float:
 
 
 def flash_bound(B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset, itemsize: int = 2):
-    """(bytes, flops) flash attention must move and do: q, k, v and o each
-    read or written once in ``itemsize`` bytes; both products at 2 flops per
-    multiply-add over the (query, key) pairs these masks let through."""
+    """(bytes, flops, exponentials) flash attention must move and do: q, k, v
+    and o each read or written once in ``itemsize`` bytes; both products at 2
+    flops per multiply-add, and one exponential, over the (query, key) pairs
+    these masks let through."""
     import torch
 
     qp = q_offset + torch.arange(Sq)[:, None]
@@ -579,16 +609,21 @@ def flash_bound(B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset, itemsize: int 
         seen &= kp <= qp
     if window is not None:
         seen &= qp - kp < window
+    pairs = B * Hq * int(seen.sum())
     nbytes = itemsize * hd * (2 * B * Hq * Sq + 2 * B * Hkv * Sk)
-    return nbytes, 4 * B * Hq * int(seen.sum()) * hd
+    return nbytes, 4 * pairs * hd, pairs
 
 
-def flash_case(case, dtype, gen) -> dict:
+def flash_case(case, dtype, gen, clock_hz: float) -> dict:
     """Kernel against plain version on the card. y: |Δ| ≤ 2⁻⁷·|y| +
     1e-5·max|y| for bf16 (one bf16 ulp: both sides sum in f32 in other
     orders, then round), 1e-5·max|y| for f32. Times: the kernel, its plain
     version, and F.scaled_dot_product_attention (non-causal, the same shape;
-    k and v repeated to Hq heads first where Hkv < Hq) as a yardstick."""
+    k and v repeated to Hq heads first where Hkv < Hq) as a yardstick; the
+    kernel's device time and host enqueue time. Bound: bytes over HBM, or
+    flops over the peak of the dtype's units (bf16 tensor cores, or f32 on
+    the CUDA cores); ``exp_ms``, for information, the exponentials over the
+    SMs' ex2 rate at ``clock_hz``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -607,21 +642,61 @@ def flash_case(case, dtype, gen) -> dict:
          "err_in_tolerance_units": units, "max_abs_y": float(want.float().abs().max())}
     assert units <= 1.0 and bool(torch.isfinite(got).all()), r
     del got, want
-    nbytes, flops = flash_bound(*case, itemsize=q.element_size())
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_OPS_PER_S * 1e3
+    nbytes, flops, exps = flash_bound(*case, itemsize=q.element_size())
+    bf16 = dtype == torch.bfloat16
+    peak = BF16_TC_OPS_PER_S if bf16 else FP32_OPS_PER_S
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     kr, vr = (k, v) if Hkv == Hq else (k.repeat_interleave(Hq // Hkv, 1),
                                        v.repeat_interleave(Hq // Hkv, 1))
-    kernel_ms = time_ms(lambda: FK.flash_attention_fwd(q, k, v, **kw), reps=20, warmup=3)
+    call = lambda: FK.flash_attention_fwd(q, k, v, **kw)  # noqa: E731
+    kernel_ms = time_ms(call, reps=20, warmup=3)
     r.update(kernel_ms=kernel_ms,
              plain_ms=time_ms(lambda: FK.flash_attention_plain(q, k, v, **kw), reps=3),
              library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr),
                                 reps=20, warmup=3),
+             **device_and_host(call),
              bytes=nbytes, flops=flops, bytes_ms=bytes_ms, ops_ms=ops_ms,
              bound_ms=max(bytes_ms, ops_ms),
              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+             bound_units=("bf16 tensor cores, 989 TFLOP/s" if bf16
+                          else "f32 CUDA cores, 67 TFLOP/s"),
+             exponentials=exps,
+             exp_ms=exps / (EXP_PER_SM_PER_CLOCK * N_SMS * clock_hz) * 1e3,
+             sm_clock_max_MHz=clock_hz / 1e6,
              bf16_tensor_core_ms=flops / BF16_TC_OPS_PER_S * 1e3,
              kernel_TFLOPs=flops / (kernel_ms * 1e-3) / 1e12)
     emit("flash_attention", **r)
+    return r
+
+
+def flash_ops_case(gen) -> dict:
+    """``ops.flash_attention`` at the encoder shape on model-layout (B, S, H,
+    hd) bf16 tensors, as whisper's encoder calls it: under torch.profiler the
+    call runs exactly one device kernel (no copy of q, k or v, no transposed
+    output), o comes back contiguous and within the tolerance of the plain
+    version."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK, ops
+
+    B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset = FLASH_ENCODER
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").bfloat16()  # noqa: E731
+    q, k, v = rnd(B, Sq, Hq, hd), rnd(B, Sk, Hkv, hd), rnd(B, Sk, Hkv, hd)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    call = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
+    call()
+    prof = profile_device(call)
+    got = call()
+    want = FK.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                    **kw).transpose(1, 2)
+    torch.cuda.synchronize()
+    r = {"case": "ops.flash_attention, model layout", "B": B, "S": Sq, "H": Hq, "hd": hd,
+         "device_kernels": prof["device_events"], "device_kernels_ms": prof["top_kernels_ms"],
+         "device_ms": prof["device_ms"], "out_contiguous": got.is_contiguous(),
+         "err_in_tolerance_units": ulp_units(got, want),
+         "kernel_ms": time_ms(call, reps=20, warmup=3)}
+    emit("flash_attention", **r)
+    assert r["device_kernels"] == 1 and r["out_contiguous"], r
+    assert r["err_in_tolerance_units"] <= 1.0, r
     return r
 
 
@@ -629,11 +704,13 @@ def phase_flash_attention() -> dict:
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    encoder = flash_case(FLASH_ENCODER, torch.bfloat16, gen)
+    clock_hz = sm_clock_hz()
+    encoder = flash_case(FLASH_ENCODER, torch.bfloat16, gen, clock_hz)
     for case in [FLASH_ENCODER] + FLASH_SMALL:
         for dtype in (torch.bfloat16, torch.float32):
             if (case, dtype) != (FLASH_ENCODER, torch.bfloat16):
-                flash_case(case, dtype, gen)
+                flash_case(case, dtype, gen, clock_hz)
+    encoder["ops"] = flash_ops_case(gen)
     torch.cuda.empty_cache()
     return encoder
 
@@ -912,12 +989,14 @@ def profile_device(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}  # kernel names cut to 90 characters; kernels that share those add up
+    events = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            events += 1
             by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"device_ms": sum(by_name.values()), "profiled_wall_ms": wall_ms,
-            "top_kernels_ms": dict(top)}
+            "top_kernels_ms": dict(top), "device_events": events}
 
 
 def _serve(model, params, prompt, use_pallas: bool, audio=None) -> dict:

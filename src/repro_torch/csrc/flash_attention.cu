@@ -1,10 +1,9 @@
 // Flash attention forward for Hopper (sm_90a). Replaces the Pallas TPU kernel
 // repro/kernels/flash_attention/kernel.py::flash_attention_fwd (_flash_kernel).
 //
-// For each (b, h) with kv head h / (Hq / Hkv), and q scaled to f32 by
-// 1/sqrt(hd) before the product:
+// For each (b, h) with kv head h / (Hq / Hkv), with scale = 1/sqrt(hd):
 //
-//   s[i][j] = (q[i] * scale) . k[j],  masked to -1e30 where the key is not seen
+//   s[i][j] = scale * (q[i] . k[j]),  masked to -1e30 where the key is not seen
 //   o[i]    = sum_j p[i][j] v[j] / max(l[i], 1e-30),
 //   p[i][j] = exp(s[i][j] - m[i]) where seen, else 0;  l[i] = sum_j p[i][j]
 //
@@ -12,57 +11,85 @@
 // carries them in VMEM scratch). A key j is seen by query i (absolute position
 // q_offset + i) when j < Sk, j <= q_offset + i under `causal`, and
 // q_offset + i - j < window under a window. A row that sees no key gives 0.
-// The output is rounded to q's dtype (round to nearest even).
+// The output is rounded to q's dtype (round to nearest even). q, k, v and o
+// are read and written through their (b, h, s) strides, so the model's
+// (B, S, H, hd) layout is used in place; the hd axis is contiguous.
 //
-// Bound: operations. 4 * B * Hq * Sq * Sk * hd flops for the two products
+// Bound: operations. 4 * B * Hq * (seen pairs) * hd flops for the two products
 // (46.08 GFLOP at whisper-large-v3's encoder layer, B 4, H 20, S 1500, hd 64)
-// against 61.44 MB of q, k, v and o in bf16: 750 flops per byte. In f32 on the
-// CUDA cores, as here and in the TPU kernel, that is 0.688 ms at 67 TFLOP/s;
-// bf16 tensor cores would make it 0.047 ms (989 TFLOP/s).
+// against 61.44 MB of q, k, v and o in bf16: 750 flops per byte.
 //
-// Design. The TPU kernel runs a grid (B, Hq, n_q, n_kv) whose kv axis is
-// sequential and one 1500 x 1500 block at whisper's shape (no 128-divisor).
-// Here one block owns 64 queries of one (b, h) and loops over the key tiles of
-// 64 that some of its queries can see (tiles wholly masked by the causal or
-// window rule are skipped: they would leave m, l and the sum unchanged). Keys
-// past Sk in the ragged last tile are staged as zeros and masked out of the
-// softmax (a zero key would score 0 and take weight). q (scaled, transposed),
-// k (transposed), v and the tile's probabilities (transposed) are staged in
-// shared memory as f32. 256 threads form a 16 x 16 grid: thread
-// (ti, tj) computes the 4 x 4 scores of queries 4ti.. and keys 4tj.. as outer
-// products of float4 rows with explicit fused multiply-adds (the library is
-// built with --fmad=false), reduces the row max and sum over its 16 lanes with
-// warp shuffles, and keeps m, l and the 4 x hd/16 accumulator of queries 4ti..
-// and dims (hd/16)tj.. in registers. GQA is index arithmetic: no copy of k or
-// v per head. (Sq/64) x Hq x B blocks: 1,920 at whisper's encoder shape.
+// bf16 inputs: the tensor-core kernel (flash_fwd_bf16). Bound 0.047 ms at the
+// encoder layer on the bf16 tensor cores (989 TFLOP/s); the hi/lo split of P
+// below makes the tensor-core work 57.6 GFLOP (0.058 ms).
+//   - A block owns 64 queries of one (b, h): one consumer warpgroup and one
+//     producer warp, two blocks per SM at hd 64 (1,920 blocks at the encoder
+//     layer). Two consumer warpgroups per block (128 queries, taking turns to
+//     issue their products) were measured no faster, and went (PERF.md).
+//   - The producer loads the q tile once and keeps a ring of kNS stages of
+//     64-key K and V tiles full with TMA (cp.async.bulk.tensor, 128-byte
+//     swizzle, completion on mbarriers; K and V each have their own full and
+//     free barriers, so the next K lands while this V is read). The tensor
+//     maps are 4-d (hd, S, H, B) over the caller's strides; TMA fills rows
+//     past Sq or Sk with zeros, and those keys are masked out of the softmax
+//     (a zero key would score 0 and take weight).
+//   - S = Q.K^T runs as wgmma.mma_async m64n64k16 on bf16 from shared memory
+//     (both operands K-major), f32 accumulators. Products of bf16 values are
+//     exact in f32; only the order of the sums differs from the reference.
+//     scale * log2(e) is applied to the f32 scores after the product, so each
+//     exponential is ex2.approx of one fused multiply-add.
+//   - Tile i's S is issued ahead of tile i-1's P.V, so that tile i's softmax
+//     can run while that P.V is on the tensor cores.
+//   - The softmax works on the accumulator fragment in registers: each thread
+//     holds two rows; row maxima over a quad with two shuffles; the row sums
+//     stay per thread until the epilogue. Masks (causal, window, q_offset, the
+//     ragged last tile) are applied only on tiles that need them; tiles that
+//     no query of the block can see are not loaded.
+//   - O += P.V takes P from registers as wgmma's A operand (the accumulator
+//     layout of S is the A-fragment layout), split as hi = bf16(p) and
+//     lo = bf16(p - hi): rounding p to bf16 once would break the held
+//     tolerance (one bf16 ulp of the f32 result) 20-68 times over. Both halves
+//     multiply the same V tile, read from shared memory as an MN-major B
+//     operand, into one f32 accumulator. The epilogue divides by
+//     max(l, 1e-30), rounds to bf16 and stores through o's strides.
 //
-// Later work, not done here: Q.K^T and P.V on the tensor cores (mma.sync or
-// wgmma on bf16), TMA staging of the next tile while this one computes, and
-// the 8-way bank conflicts of the transposed stores into shared memory.
+// f32 inputs: the CUDA-core kernel (flash_fwd_f32), as first written but for
+// the strides (and a register cap keeping three blocks per SM at hd 64). Its
+// tolerance, 1e-5 * max|y| with no relative part, is beyond TF32 products.
+// Bound 0.688 ms at the encoder shape on the CUDA cores (67 TFLOP/s). One
+// block per 64 queries of one (b, h); q (scaled by 1/sqrt(hd) before the
+// product, transposed), k (transposed), v and the tile's p (transposed) are
+// staged in shared memory as f32; 256 threads form a 16 x 16 grid, thread
+// (ti, tj) computing 4 x 4 scores as outer products of float4 rows with
+// explicit fused multiply-adds (the library is built with --fmad=false).
+//
+// Where the bf16 kernel's time goes (PERF.md): removing the exponentials, the
+// split of P or the K/V loads from it leaves its time as it is; removing the
+// P.V products, or Q.K^T, shortens it. ptxas moves the wait for P.V up into
+// the softmax (the SASS shows it), and a version that kept the two apart
+// (double-buffered P fragments) was no faster: each SM sub-partition holds
+// two consumer warps, too few to hide the softmax's dependency chains and the
+// per-tile waits. Later work: more warps or more independent work per
+// sub-partition (128-key tiles at lower register cost, three blocks per SM),
+// a persistent grid, a TMA store of o.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+constexpr size_t kMaxSmem = 232448;  // what one block may use on Hopper
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core kernel
+// ---------------------------------------------------------------------------
+
 constexpr int kBQ = 64;        // queries per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kPad = 4;        // row padding of the shared tiles, in floats (float4-aligned)
-constexpr float kNegInf = -1e30f;
-constexpr size_t kMaxSmem = 232448;  // what one block may use on Hopper
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
@@ -78,11 +105,16 @@ constexpr size_t smem_floats() {
          (size_t)kBK * (kBQ + kPad);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    int Hq, int Hkv, int Sq, int Sk, int causal, int has_window, int window, int q_offset,
-    float scale) {
+// (b, h, s) strides of q, k, v and o, in elements
+struct Strides {
+  int64_t qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2) flash_fwd_f32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, Strides st, int Hq, int Hkv, int Sq, int Sk, int causal,
+    int has_window, int window, int q_offset, float scale) {
   constexpr int LQ = kBQ + kPad, LK = kBK + kPad, LD = HD + kPad;
   constexpr int DPT = HD / 16;  // output dims per thread: 4 or 8
   extern __shared__ float4 smem4[];
@@ -95,12 +127,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int ti = tid / 16, tj = tid % 16;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int64_t q_off = ((int64_t)b * Hq + h) * Sq * HD;
-  const int64_t kv_off = ((int64_t)b * Hkv + hk) * Sk * HD;
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* kb = k + b * st.kb + hk * st.kh;
+  const float* vb = v + b * st.vb + hk * st.vh;
 
   for (int e = tid; e < kBQ * HD; e += kThreads) {
     const int i = e / HD, d = e % HD;
-    const float x = q0 + i < Sq ? to_f(q[q_off + (int64_t)(q0 + i) * HD + d]) : 0.f;
+    const float x = q0 + i < Sq ? qb[(int64_t)(q0 + i) * st.qs + d] : 0.f;
     Qt[d * LQ + i] = __fmul_rn(x, scale);
   }
 
@@ -128,9 +161,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     for (int e = tid; e < kBK * HD; e += kThreads) {
       const int j = e / HD, d = e % HD;
       const bool in = k0 + j < Sk;
-      const int64_t g = kv_off + (k0 + j) * HD + d;
-      Kt[d * LK + j] = in ? to_f(k[g]) : 0.f;
-      Vs[j * LD + d] = in ? to_f(v[g]) : 0.f;
+      Kt[d * LK + j] = in ? kb[(k0 + j) * st.ks + d] : 0.f;
+      Vs[j * LD + d] = in ? vb[(k0 + j) * st.vs + d] : 0.f;
     }
     __syncthreads();
 
@@ -206,60 +238,546 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int i = q0 + 4 * ti + r;
     if (i >= Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = o + q_off + (int64_t)i * HD + DPT * tj;
+    float* orow = o + b * st.ob + h * st.oh + (int64_t)i * st.os + DPT * tj;
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) orow[c] = from_f<T>(__fdiv_rn(acc[r][c], denom));
+    for (int c = 0; c < DPT; ++c) orow[c] = __fdiv_rn(acc[r][c], denom);
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
-           int Sk, int causal, int has_window, int window, int q_offset, float scale,
-           cudaStream_t stream) {
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides& st, int B,
+               int Hq, int Hkv, int Sq, int Sk, int causal, int has_window, int window,
+               int q_offset, float scale, cudaStream_t stream) {
   const size_t bytes = smem_floats<HD>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Hq, Hkv, Sq, Sk, causal, has_window, window, q_offset, scale);
+  flash_fwd_f32<HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), st, Hq, Hkv, Sq, Sk, causal, has_window, window, q_offset, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
-             int Sk, int hd, int causal, int has_window, int window, int q_offset, float scale,
-             cudaStream_t stream) {
-  if (hd == 64)
-    return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, has_window, window, q_offset,
-                         scale, stream);
-  return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, has_window, window, q_offset,
-                        scale, stream);
 }
 
 static_assert(smem_floats<128>() * sizeof(float) <= kMaxSmem,
               "hd = 128 tiles exceed shared memory");
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 64;  // query rows per consumer warpgroup
+constexpr int kKeys = 64;  // keys per k/v tile
+constexpr int kNS = 3;     // k/v stages in the ring
+constexpr int kRowB = 128; // bytes of one swizzled row: 64 bf16 (a column block)
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// wait for the phase of the given parity to complete; after ~10 s of waiting
+// (a copy that never lands) trap, so the launch fails instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// one box of a 4-d tensor map (hd, S, H, B) into shared memory
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// shared-memory matrix descriptor of a 128-byte-swizzled operand whose 8-row
+// groups lie 1024 bytes apart (K-major Q and K, MN-major V alike)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>  // wait until at most N committed groups are pending
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, K-major in shared memory) . B (16 x 64,
+// K-major in shared memory); accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16 bf16 in registers) . B (16 x 64, MN-major in
+// shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// keep the compiler from reading an accumulator before wgmma.wait_group, or
+// from reusing an A-fragment register while wgmma may still read it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// shared memory of one block: the q tile, then kNS k tiles and kNS v tiles of
+// kKeys keys, each [HD / 64 column blocks][rows][64] bf16 in 128-byte-swizzled
+// rows, then the mbarriers
+template <int HD>
+struct Layout {
+  static constexpr size_t q_bytes = (size_t)kTile * HD * 2;
+  static constexpr size_t kv_bytes = (size_t)kKeys * HD * 2;
+  static constexpr size_t k_at = q_bytes;
+  static constexpr size_t v_at = k_at + kNS * kv_bytes;
+  static constexpr size_t bar_at = v_at + kNS * kv_bytes;
+  static constexpr int n_bars = 1 + 4 * kNS;  // q_full, k_full[], v_full[], k_free[], v_free[]
+  static constexpr size_t bytes = bar_at + 8 * n_bars + 1024;  // + alignment slack
+};
+
+// scale, mask and exponentiate one tile's scores in place (sc: the S
+// accumulator of rows qp0 and qp0 + 8, keys k0 + 8 j + 2 tq4 + {0, 1}), carry
+// the row maxima m (log2 units) and the row sums l, return the factors alpha
+// by which the tile rescales the rows' earlier sums
+__device__ __forceinline__ void softmax_tile(float (&sc)[kKeys / 2], bool mask, long long k0,
+                                             long long qp0, int tq4, int Sk, int causal,
+                                             int has_window, int window, float scale_log2,
+                                             float& m0, float& m1, float& l0, float& l1,
+                                             float& a0, float& a1) {
+  const long long qp1 = qp0 + 8;
+  if (mask) {
+#pragma unroll
+    for (int r = 0; r < kKeys / 2; ++r) {
+      const long long kp = k0 + 8 * (r / 4) + 2 * tq4 + (r & 1);
+      const long long qp = (r & 2) ? qp1 : qp0;
+      const bool seen = kp < Sk && (!causal || kp <= qp) && (!has_window || qp - kp < window);
+      sc[r] = seen ? sc[r] : neg_inf();
+    }
+  }
+  float mx0 = neg_inf(), mx1 = neg_inf();
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  // a masked score is -inf: exp2 gives 0 while m stays finite (-1e30 at most)
+  const float n0 = fmaxf(m0, __fmul_rn(mx0, scale_log2));
+  const float n1 = fmaxf(m1, __fmul_rn(mx1, scale_log2));
+  a0 = ex2(__fsub_rn(m0, n0));
+  a1 = ex2(__fsub_rn(m1, n1));
+  m0 = n0;
+  m1 = n1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+    sc[4 * j] = ex2(__fmaf_rn(sc[4 * j], scale_log2, -n0));
+    sc[4 * j + 1] = ex2(__fmaf_rn(sc[4 * j + 1], scale_log2, -n0));
+    sc[4 * j + 2] = ex2(__fmaf_rn(sc[4 * j + 2], scale_log2, -n1));
+    sc[4 * j + 3] = ex2(__fmaf_rn(sc[4 * j + 3], scale_log2, -n1));
+    sum0 = __fadd_rn(sum0, __fadd_rn(sc[4 * j], sc[4 * j + 1]));
+    sum1 = __fadd_rn(sum1, __fadd_rn(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  l0 = __fadd_rn(__fmul_rn(l0, a0), sum0);
+  l1 = __fadd_rn(__fmul_rn(l1, a1), sum1);
+}
+
+// p as wgmma's A fragments, one per 16 keys (the S accumulator's layout is
+// the A-fragment layout): hi = bf16(p), lo = bf16(p - hi)
+__device__ __forceinline__ void split_p(const float (&p)[kKeys / 2],
+                                        uint32_t (&hi)[kKeys / 16][4],
+                                        uint32_t (&lo)[kKeys / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = p[8 * kk + 2 * e], y = p[8 * kk + 2 * e + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+      hi[kk][e] = pack_bf16(h);
+      lo[kk][e] = pack_bf16(
+          __floats2bfloat162_rn(__fsub_rn(x, __low2float(h)), __fsub_rn(y, __high2float(h))));
+    }
+}
+
+// 128 consumer threads and one producer warp; at most 200 registers a thread
+// keeps two blocks on an SM at hd 64 (hd 128 needs more and gets one)
+constexpr int kThreadsBf16 = 128 + 32;
+constexpr int kRegs = 200;
+
+template <int HD>
+__global__ void __maxnreg__(kRegs) flash_fwd_bf16(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int64_t osb,
+    int64_t osh, int64_t oss, int Hq, int Hkv, int Sq, int Sk, int causal, int has_window,
+    int window, int q_offset, float scale_log2) {
+  using L = Layout<HD>;
+  constexpr int CB = HD / 64, NK = kKeys;
+  static_assert(NK == 64, "one m64n64k16 wgmma per 16 dims covers a key tile");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_at);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + kNS;
+  uint64_t* k_free = bars + 1 + 2 * kNS;
+  uint64_t* v_free = bars + 1 + 3 * kNS;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kNS; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_free + s, 4);  // lane 0 of every consumer warp
+      mbar_init(v_free + s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the key tiles some query of this block may see: NK-aligned from kbeg, below kend
+  const long long qlo = (long long)q_offset + q0;
+  const long long qhi = (long long)q_offset + min(Sq, q0 + kTile) - 1;
+  long long kend = Sk, kbeg = 0;
+  if (causal) kend = kend < qhi + 1 ? kend : qhi + 1;
+  if (has_window) kbeg = qlo - window + 1 > 0 ? qlo - window + 1 : 0;
+  kbeg = kbeg / NK * NK;
+  const int n_tiles = kend > kbeg ? (int)((kend - kbeg + NK - 1) / NK) : 0;
+  auto stage = [](int i) { return i % kNS; };
+  auto parity = [](int i) { return (uint32_t)((i / kNS) & 1); };
+
+  if (warp == 4) {  // the producer warp: one thread issues every copy
+    if (lane == 0) {
+      mbar_expect_tx(q_full, (uint32_t)L::q_bytes);
+      for (int cb = 0; cb < CB; ++cb)
+        tma_load(&tq, smem + (size_t)cb * kTile * kRowB, q_full, cb * 64, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int k0 = (int)kbeg + i * NK;
+        const uint32_t free_parity = parity(i) ^ 1;  // the first round passes at once
+        uint8_t* kt = smem + L::k_at + stage(i) * L::kv_bytes;
+        uint8_t* vt = smem + L::v_at + stage(i) * L::kv_bytes;
+        mbar_wait(k_free + stage(i), free_parity);
+        mbar_expect_tx(k_full + stage(i), (uint32_t)L::kv_bytes);
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load(&tk, kt + cb * NK * kRowB, k_full + stage(i), cb * 64, k0, hk, b);
+        mbar_wait(v_free + stage(i), free_parity);
+        mbar_expect_tx(v_full + stage(i), (uint32_t)L::kv_bytes);
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load(&tv, vt + cb * NK * kRowB, v_full + stage(i), cb * 64, k0, hk, b);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: this thread holds rows qp0 and qp0 + 8
+  const int w = warp, g = lane / 4, tq4 = lane % 4;
+  const long long qp0 = qlo + 16 * w + g;
+  const uint32_t q_addr = smem_u32(smem);
+  float acc[CB][32];
+  float sc[NK / 2];  // S, then p in place
+  uint32_t p_hi[NK / 16][4], p_lo[NK / 16][4];
+  auto issue_s = [&](int i) {  // S = Q . K_i^T
+    const uint32_t k_addr = smem_u32(smem + L::k_at + stage(i) * L::kv_bytes);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 dims = 32 bytes into the swizzled row
+      wgmma_ss(sc, sw128_desc(q_addr + (kk / 4) * kTile * kRowB + off),
+               sw128_desc(k_addr + (kk / 4) * NK * kRowB + off), kk > 0);
+    }
+  };
+  auto issue_pv = [&](int i) {  // O += (hi + lo) . V_i
+    const uint32_t v_addr = smem_u32(smem + L::v_at + stage(i) * L::kv_bytes);
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk)
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb) {
+        const uint64_t dv = sw128_desc(v_addr + cb * NK * kRowB + kk * 16 * kRowB);
+        wgmma_rs(acc[cb], p_hi[kk], dv);
+        wgmma_rs(acc[cb], p_lo[kk], dv);
+      }
+  };
+  auto fence_pv = [&] {  // after the wait for a P.V: acc is written, p may be reused
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) fence_regs(acc[cb]);
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk) {
+      fence_regs(p_hi[kk]);
+      fence_regs(p_lo[kk]);
+    }
+  };
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // m in units of log2, scaled
+  auto softmax = [&](int i, float& a0, float& a1) {  // tile i's p, in place in sc
+    const long long k0 = kbeg + (long long)i * NK;
+    const bool mask =
+        k0 + NK > Sk || (causal && k0 + NK - 1 > qlo) || (has_window && qhi - k0 >= window);
+    softmax_tile(sc, mask, k0, qp0, tq4, Sk, causal, has_window, window, scale_log2, m0, m1, l0,
+                 l1, a0, a1);
+  };
+
+#pragma unroll
+  for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[cb][r] = 0.f;
+  mbar_wait(q_full, 0);
+  if (n_tiles > 0) {
+    // tile 0: S, then its p
+    float a0, a1;
+    mbar_wait(k_full + stage(0), parity(0));
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(k_free + stage(0));
+    softmax(0, a0, a1);
+    split_p(sc, p_hi, p_lo);
+    // each further tile's S runs on the tensor cores ahead of the previous
+    // tile's P.V, and its softmax while that P.V runs
+    for (int i = 1; i < n_tiles; ++i) {
+      mbar_wait(k_full + stage(i), parity(i));
+      mbar_wait(v_full + stage(i - 1), parity(i - 1));
+      wgmma_fence();
+      issue_s(i);
+      wgmma_commit();
+      issue_pv(i - 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // S of tile i
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(k_free + stage(i));
+      softmax(i, a0, a1);
+      wgmma_wait<0>();  // P.V of tile i - 1
+      fence_pv();
+      if (lane == 0) mbar_arrive(v_free + stage(i - 1));
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+        for (int r = 0; r < 32; ++r) acc[cb][r] = __fmul_rn(acc[cb][r], (r & 2) ? a1 : a0);
+      split_p(sc, p_hi, p_lo);
+    }
+    mbar_wait(v_full + stage(n_tiles - 1), parity(n_tiles - 1));
+    wgmma_fence();
+    issue_pv(n_tiles - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_pv();
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 = __fadd_rn(l0, __shfl_xor_sync(0xffffffffu, l0, off));
+    l1 = __fadd_rn(l1, __shfl_xor_sync(0xffffffffu, l1, off));
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  const int row0 = q0 + 16 * w + g, row1 = row0 + 8;
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+#pragma unroll
+  for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = cb * 64 + 8 * j + 2 * tq4;
+      if (row0 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row0 * oss + col) =
+            __floats2bfloat162_rn(__fdiv_rn(acc[cb][4 * j], d0),
+                                  __fdiv_rn(acc[cb][4 * j + 1], d0));
+      if (row1 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row1 * oss + col) =
+            __floats2bfloat162_rn(__fdiv_rn(acc[cb][4 * j + 2], d1),
+                                  __fdiv_rn(acc[cb][4 * j + 3], d1));
+    }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+constexpr int kErrNoEncoder = 1000;  // the driver has no cuTensorMapEncodeTiled
+constexpr int kErrEncode = 1001;     // + CUresult: a tensor map was refused
+
+// a 4-d map (hd, S, H, B) of bf16 with (s, h, b) strides in elements, boxes of
+// 64 x rows, 128-byte swizzle, zeros past each extent
+int make_map(CUtensorMap* map, const void* base, int hd, int S, int H, int B, int64_t ss,
+             int64_t sh, int64_t sb, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, const Strides& st, int B,
+                int Hq, int Hkv, int Sq, int Sk, int causal, int has_window, int window,
+                int q_offset, float scale, cudaStream_t stream) {
+  using L = Layout<HD>;
+  static_assert(L::bytes <= kMaxSmem, "tiles exceed shared memory");
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, HD, Sq, Hq, B, st.qs, st.qh, st.qb, kTile);
+  if (!err) err = make_map(&tk, k, HD, Sk, Hkv, B, st.ks, st.kh, st.kb, kKeys);
+  if (!err) err = make_map(&tv, v, HD, Sk, Hkv, B, st.vs, st.vh, st.vb, kKeys);
+  if (err) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + kTile - 1) / kTile, Hq, B);
+  flash_fwd_bf16<HD><<<grid, kThreadsBf16, L::bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st.ob, st.oh, st.os, Hq, Hkv, Sq, Sk, causal,
+      has_window, window, q_offset, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
 // q, o (B, Hq, Sq, hd) and k, v (B, Hkv, Sk, hd), all bf16 when is_bf16, else
-// f32; contiguous. hd is 64 or 128. `window` is read only when has_window.
-// Returns cudaGetLastError() after the one launch.
+// f32, addressed through their (b, h, s) strides in elements (the hd axis is
+// contiguous; for bf16 every stride is a multiple of 8 and every pointer
+// 16-byte aligned, as TMA needs). hd is 64 or 128. `window` is read only when
+// has_window. Returns cudaGetLastError() after the one launch, or 1000 when
+// the driver has no cuTensorMapEncodeTiled, 1001 + CUresult when it refuses a
+// tensor map.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                        int Hkv, int Sq, int Sk, int hd, int causal, int has_window, int window,
-                        int q_offset, float scale, int is_bf16, void* stream) {
+                        int Hkv, int Sq, int Sk, int hd, int64_t qb, int64_t qh, int64_t qs,
+                        int64_t kb, int64_t kh, int64_t ks, int64_t vb, int64_t vh, int64_t vs,
+                        int64_t ob, int64_t oh, int64_t os, int causal, int has_window,
+                        int window, int q_offset, float scale, int is_bf16, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 || Hq > 65535 ||
       B > 65535 || (hd != 64 && hd != 128))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, hd, causal, has_window,
-                                   window, q_offset, scale, s);
-  return dispatch<float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, hd, causal, has_window, window, q_offset,
-                         scale, s);
+    return hd == 64 ? launch_bf16<64>(q, k, v, o, st, B, Hq, Hkv, Sq, Sk, causal, has_window,
+                                      window, q_offset, scale, s)
+                    : launch_bf16<128>(q, k, v, o, st, B, Hq, Hkv, Sq, Sk, causal, has_window,
+                                       window, q_offset, scale, s);
+  return hd == 64 ? launch_f32<64>(q, k, v, o, st, B, Hq, Hkv, Sq, Sk, causal, has_window,
+                                   window, q_offset, scale, s)
+                  : launch_f32<128>(q, k, v, o, st, B, Hq, Hkv, Sq, Sk, causal, has_window,
+                                    window, q_offset, scale, s);
 }
 
 }  // extern "C"

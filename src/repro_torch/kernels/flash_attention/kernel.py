@@ -3,14 +3,19 @@ version.
 
 :func:`flash_attention_fwd` replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention_fwd`` and keeps its
-layout and its function: q (B, Hq, Sq, hd), k and v (B, Hkv, Sk, hd), bf16 or
-f32, GQA by ``h // (Hq // Hkv)``, causal and sliding-window masks at absolute
-query positions ``q_offset + i``, f32 accumulation, the output in q's dtype.
-A query row that sees no key gives 0 (the kernel divides by ``max(l, 1e-30)``;
+function: q (B, Hq, Sq, hd), k and v (B, Hkv, Sk, hd), bf16 or f32, GQA by
+``h // (Hq // Hkv)``, causal and sliding-window masks at absolute query
+positions ``q_offset + i``, f32 accumulation, the output in q's dtype. A query
+row that sees no key gives 0 (the kernel divides by ``max(l, 1e-30)``;
 ``ref.attention_ref`` would give the mean of v there). hd is 64 or 128. The
-CUDA source is ``src/repro_torch/csrc/flash_attention.cu``; it says what bounds
-the kernel (f32 operations) and how a block walks its key tiles. It is built
-at first use by ``kernels/build.py`` and bound with ``ctypes``.
+inputs may be any strided views whose hd axis is contiguous and whose rows
+are 16-byte aligned, such as the model's (B, S, H, hd) tensors transposed:
+the kernel reads them in place. o is allocated in (B, Sq, Hq, hd) memory and
+returned as its (B, Hq, Sq, hd) view. The CUDA source is
+``src/repro_torch/csrc/flash_attention.cu``: a tensor-core kernel (wgmma, TMA)
+for bf16 and a CUDA-core kernel for f32; it says what bounds each and how a
+block walks its key tiles. It is built at first use by ``kernels/build.py``
+and bound with ``ctypes``.
 
 A tensor on the CPU goes to :func:`flash_attention_plain`; a CUDA tensor
 launches the kernel or raises — there is no fallback.
@@ -32,13 +37,16 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 _DTYPES = (torch.bfloat16, torch.float32)
 _INT32 = (-(1 << 31), (1 << 31) - 1)
+_ALIGN = 16  # bytes: TMA's alignment of a row and of each stride
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = ctypes.CDLL(str(build(SOURCE)[0]))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [P] * 4 + [I] * 10 + [ctypes.c_float, I, P]
+    L = ctypes.c_int64
+    lib.flash_attention_fwd.argtypes = ([P] * 4 + [I] * 6 + [L] * 12 + [I] * 4
+                                        + [ctypes.c_float, I, P])
     lib.flash_attention_fwd.restype = I
     return lib
 
@@ -46,6 +54,13 @@ def _library():
 def sm_scale(hd: int) -> float:
     """``1 / hd ** 0.5`` as the float32 the TPU kernel multiplies q by."""
     return float(np.float32(1.0 / hd ** 0.5))
+
+
+def _strides(t: torch.Tensor):
+    """(b, h, s) strides of a 4-d tensor in elements; an axis of size 1 gets
+    its contiguous stride (any stride addresses it, and TMA wants a valid one)."""
+    (sb, sh, ss, _), (B, H, S, hd) = t.stride(), t.shape
+    return sb if B > 1 else H * S * hd, sh if H > 1 else S * hd, ss if S > 1 else hd
 
 
 def _check(q, k, v, window, q_offset) -> None:
@@ -68,8 +83,13 @@ def _check(q, k, v, window, q_offset) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name}'s hd axis must be contiguous, "
+                             f"got strides {t.stride()}")
+        size = t.element_size()
+        if t.data_ptr() % _ALIGN or any(st * size % _ALIGN for st in _strides(t)):
+            raise ValueError(f"flash_attention: {name}'s rows must be {_ALIGN}-byte aligned, "
+                             f"got strides {t.stride()} at offset {t.data_ptr() % _ALIGN}")
     if min(B, Hq, Sq, Hkv, Sk) < 1 or Hq % Hkv:
         raise ValueError(f"flash_attention: need nonempty inputs and Hq % Hkv == 0, got "
                          f"B {B}, Hq {Hq}, Sq {Sq}, Hkv {Hkv}, Sk {Sk}")
@@ -87,7 +107,8 @@ def flash_attention_fwd(
     window: Optional[int] = None,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Returns o (B, Hq, Sq, hd) in q's dtype."""
+    """Returns o (B, Hq, Sq, hd) in q's dtype: on the card a view of
+    (B, Sq, Hq, hd) memory."""
     _check(q, k, v, window, q_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
@@ -97,16 +118,19 @@ def flash_attention_fwd(
     Hkv, Sk = k.shape[1], k.shape[2]
     if max(B, Hq) > 65535:
         raise ValueError(f"flash_attention: the grid takes B and Hq up to 65535, got {B}, {Hq}")
-    o = torch.empty_like(q)
+    o = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     with torch.cuda.device(q.device):
         err = _library().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Hq, Hkv, Sq, Sk, hd, int(bool(causal)), int(window is not None),
+            B, Hq, Hkv, Sq, Sk, hd, *_strides(q), *_strides(k), *_strides(v), *_strides(o),
+            int(bool(causal)), int(window is not None),
             0 if window is None else int(window), int(q_offset), sm_scale(hd),
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention launch failed: error {err} (a CUDA error; "
+                           f"1000 + n: the driver refused a TMA tensor map)")
     flash_attention_fwd.launches += 1
     return o
 

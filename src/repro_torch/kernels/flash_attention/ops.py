@@ -1,8 +1,9 @@
 """Flash attention in model layout (B, S, H, hd), the counterpart of
-``repro/kernels/flash_attention/ops.py``: swaps the head axis ahead of S for
-the kernel and back. The reference picks Pallas block sizes here; the CUDA
-kernel tiles by 64 and masks the ragged tail itself, so there is nothing to
-pick or pad."""
+``repro/kernels/flash_attention/ops.py``. The reference copies q, k and v to
+(B, H, S, hd) and picks Pallas block sizes that divide S; here the kernel
+reads the model's tensors in place through their strides (the views below
+copy nothing), tiles by 64 and masks the ragged tail itself, and writes o in
+(B, S, H, hd) memory, so the result comes back contiguous."""
 from __future__ import annotations
 
 from typing import Optional
@@ -24,9 +25,7 @@ def flash_attention(
     if window is not None and not isinstance(window, int):
         raise TypeError("kernel path needs a static window")
     out = flash_attention_fwd(
-        q.transpose(1, 2).contiguous(),
-        k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(),
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=causal, window=window, q_offset=q_offset,
     )
     return out.transpose(1, 2)

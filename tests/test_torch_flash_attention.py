@@ -183,3 +183,88 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         with pytest.raises(ValueError):
             fn()
     assert fa.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wrapper_takes_model_layout_views(dtype):
+    """The kernel reads (B, S, H, hd) tensors in place: their (B, H, S, hd)
+    views pass the checks and give what contiguous copies give."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 100, h, 64)).astype(np.float32))
+               .to(dtype).transpose(1, 2) for h in (4, 2, 2))
+    assert not q.is_contiguous()
+    got = t_kernel.flash_attention_fwd(q, k, v, causal=True, window=30)
+    want = t_kernel.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                        causal=True, window=30)
+    assert torch.equal(got, want)
+    assert tuple(t_kernel._strides(q)) == (100 * 4 * 64, 64, 4 * 64)
+
+
+def test_wrapper_refuses_rows_that_are_not_16_byte_aligned():
+    """TMA reads rows at 16-byte-aligned addresses: rows 68 bf16 apart (136
+    bytes) or a view 8 bytes into its storage are refused; rows 68 f32 apart
+    (272 bytes) are taken."""
+    fa = t_kernel.flash_attention_fwd
+    f32 = torch.zeros((1, 32, 2, 68))[..., :64].transpose(1, 2)
+    assert fa(f32, f32, f32).shape == (1, 2, 32, 64)
+    bf = torch.zeros((1, 32, 2, 68)).bfloat16()
+    for view in (bf[..., :64].transpose(1, 2),
+                 bf.view(-1)[4:4 + 32 * 2 * 64].view(1, 32, 2, 64).transpose(1, 2)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa(view, view, view)
+
+
+def emulate_tensor_core_kernel(q, k, v, causal, window, q_offset, split=True):
+    """The bf16 kernel's arithmetic in f32 torch on the CPU: key tiles of 64,
+    S = q·kᵀ from bf16 values (exact products, f32 sums), scaled after the
+    product by scale·log2(e), exp2 of one fused multiply-add, the online
+    softmax with m in log2 units, and P·V from p split into hi = bf16(p) and
+    lo = bf16(p - hi) (``split=False``: p rounded to bf16 once)."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    k, v = (t.float().repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+    q = q.float()
+    c = np.float32(t_kernel.sm_scale(hd)) * np.float32(1.4426950408889634)
+    qp = q_offset + torch.arange(Sq)[:, None]
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, hd))
+    for k0 in range(0, Sk, 64):
+        kt, vt = k[:, :, k0:k0 + 64], v[:, :, k0:k0 + 64]
+        s = q @ kt.transpose(-1, -2)
+        kp = k0 + torch.arange(kt.shape[2])[None, :]
+        seen = torch.ones_like(kp <= qp)
+        if causal:
+            seen &= kp <= qp
+        if window is not None:
+            seen &= qp - kp < window
+        s = torch.where(seen, s, torch.full_like(s, -float("inf")))
+        n = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        a = torch.exp2(m - n)
+        p = torch.exp2((s.double() * float(c) - n.double()).float())  # one rounding, as fmaf
+        l = l * a + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() if split else torch.zeros_like(p)
+        acc = acc * a + hi @ vt + lo @ vt
+        m = n
+    return (acc / torch.clamp(l, min=1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("case", [
+    (1, 4, 4, 300, 300, 64, False, None, 0),  # whisper's encoder layer, reduced; ragged
+    (1, 4, 2, 200, 200, 128, True, None, 0),  # hd 128 (1/sqrt(128) is no bf16 value), GQA
+    (2, 4, 1, 150, 260, 64, True, 70, 110),  # window, q_offset, grp 4
+], ids=["encoder-reduced", "hd128-causal", "window-offset"])
+def test_tensor_core_numerics_hold_the_tolerance(case):
+    """The bf16 kernel's rounding, emulated, stays within the held tolerance
+    of the plain version (|Δ| ≤ 2⁻⁷·|y| + 1e-5·max|y|); rounding p to bf16
+    once, as a single bf16 P·V would, does not."""
+    B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset = case
+    q, k, v = to_torch(inputs(B, Hq, Hkv, Sq, Sk, hd, seed=Sq + hd), torch.bfloat16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = t_kernel.flash_attention_plain(q, k, v, **kw).float().numpy()
+    got = emulate_tensor_core_kernel(q, k, v, **kw).float().numpy()
+    within(got, want, torch.bfloat16, "hi/lo P emulation vs plain")
+    once = emulate_tensor_core_kernel(q, k, v, **kw, split=False).float().numpy()
+    with pytest.raises(AssertionError):
+        within(once, want, torch.bfloat16, "bf16 P emulation vs plain")

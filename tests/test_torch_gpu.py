@@ -416,6 +416,59 @@ def test_cuda_flash_attention_ops_in_model_layout():
     assert flash_error(m(got), FK.flash_attention_plain(q, k, v, causal=False)) <= 1.0
 
 
+def model_layout(t):
+    """A (B, H, S, hd) tensor's values in the model's (B, S, H, hd) memory."""
+    return t.transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_flash_attention_ops_reads_the_model_layout_in_place(case, dtype):
+    """ops.flash_attention on (B, S, H, hd) CUDA tensors, every case and both
+    dtypes: one launch, within the tolerance of the plain version."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import kernel as FK, ops
+
+    B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset = case
+    q, k, v = flash_inputs(B, Hq, Hkv, Sq, Sk, hd, dtype, seed=Sq * hd + 1)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = FK.flash_attention_fwd.launches
+    got = ops.flash_attention(model_layout(q), model_layout(k), model_layout(v), **kw)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, Sq, Hq, hd)
+    assert flash_error(got.transpose(1, 2), FK.flash_attention_plain(q, k, v, **kw)) <= 1.0
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[1::3], ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_flash_attention_gives_the_same_bits_twice(case, dtype):
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import ops
+
+    B, Hq, Hkv, Sq, Sk, hd, causal, window, q_offset = case
+    q, k, v = (model_layout(t) for t in flash_inputs(B, Hq, Hkv, Sq, Sk, hd, dtype, seed=7))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    first = ops.flash_attention(q, k, v, **kw)
+    again = ops.flash_attention(q, k, v, **kw)
+    assert torch.equal(_bits(first), _bits(again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_flash_attention_output_is_contiguous_in_model_layout(dtype):
+    """o is written in (B, S, H, hd) memory: ops hands it back contiguous, and
+    the kernel-layout entry point returns its (B, H, S, hd) view."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import kernel as FK, ops
+
+    q, k, v = flash_inputs(2, 4, 2, 100, 100, 64, dtype, seed=2)
+    got = ops.flash_attention(model_layout(q), model_layout(k), model_layout(v), causal=False)
+    assert got.is_contiguous() and got.shape == (2, 100, 4, 64)
+    o = FK.flash_attention_fwd(q, k, v, causal=False)
+    assert o.shape == q.shape and o.transpose(1, 2).is_contiguous()
+    assert torch.equal(o, got.transpose(1, 2))
+
+
 def test_cuda_flash_attention_wrapper_refuses_instead_of_falling_back():
     _need_cuda()
     from repro_torch.kernels.flash_attention import kernel as FK
