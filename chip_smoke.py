@@ -10,8 +10,9 @@ Phases, one JSON line each:
   env           torch/CUDA versions and the card's name and power limit
   build         compiles every CUDA source of the port from ``src/repro_torch/csrc``
                 (the two fedcore sources, ssd_scan.cu, flash_attention.cu,
-                flash_decode.cu and rmsnorm.cu), one nvcc each, all at once;
-                counts the HGMMA (wgmma) instructions in flash_attention's SASS
+                flash_decode.cu and rmsnorm.cu, with the shared csrc/hopper.cuh),
+                one nvcc each, all at once; counts the HGMMA (wgmma)
+                instructions in flash_attention's and ssd_scan's SASS
   server_apply  the fused server-step kernel against its plain PyTorch version at
                 photon-75m's flat size (Np = 74,104,832, C = 4) for FedAvg,
                 FedMom and FedAdam, with and without DP noise, and FedAvg at
@@ -23,8 +24,12 @@ Phases, one JSON line each:
                 the top-k phase also times the threshold selection
   ssd_scan      the SSD chunk-scan kernel against its plain version at
                 mamba2-1.3b's full per-layer prefill shape (B = 4, S = 2048,
-                nh = 64, hd = 64, G = 1, ds = 128, chunk = 64, bf16), from a
-                nonzero state, and at S = 2000 through ``ops.ssd``'s padding
+                nh = 64, hd = 64, G = 1, ds = 128, chunk = 64), from a
+                nonzero state: bf16 (the tensor-core kernel) and f32 (the
+                CUDA-core kernel), kernel / plain / bound times (bf16 against
+                the tensor cores' peak, f32 against the CUDA cores'), device
+                and host enqueue times; and bf16 at S = 2000 through
+                ``ops.ssd``'s padding
   flash_attention
                 the flash attention kernel against its plain version at
                 whisper-large-v3's encoder layer (B = 4, H = 20, S = 1500,
@@ -48,7 +53,8 @@ Phases, one JSON line each:
                 first 8 rows at B = 128) and at small masked, GQA and ragged
                 cases in bf16 and f32: max error, kernel / plain /
                 F.scaled_dot_product_attention (and the kernels it ran) / bound
-                times over the bytes the seen keys need
+                times over the bytes the seen keys need; device and host
+                enqueue times, also of ``ops.flash_decode`` with an int kv_len
   rmsnorm       the RMSNorm kernel through ``ops.rmsnorm`` at qwen3-1.7b's
                 prefill_32k activations (1,048,576 x 2048, bf16) and at
                 mamba2-1.3b's serve prefill rows (8192 x 2048, bf16), counted
@@ -68,7 +74,8 @@ Phases, one JSON line each:
                 ``use_pallas=False`` on the card (float32 compute: held to a
                 tolerance; bf16: reported), then ``generate(use_pallas=True)``
                 with 16 new tokens, exactly 48 ssd_scan launches per prefill and
-                none per decode step; then full-width photon-75m ``generate`` at
+                none per decode step, the bf16 prefill's profile showing the
+                tensor-core kernel 48 times; then full-width photon-75m ``generate`` at
                 B = 4, prompt 512, 16 new tokens, with no kernel launched.
                 Prefill seconds, decode tokens/s, peak device memory, and a
                 torch.profiler breakdown of one prefill and one decode step
@@ -237,13 +244,17 @@ def phase_build() -> dict:
     for source, (path, log) in built.items():
         ptxas = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
         emit("build", source=source, library=os.path.relpath(path, ROOT), ptxas=ptxas)
-    # the bf16 flash kernel runs on the tensor cores: wgmma is HGMMA in the SASS
-    sass = subprocess.run([_cuobjdump(), "-sass", str(built["flash_attention.cu"][0])],
-                          capture_output=True, text=True, check=True, timeout=120).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    emit("build", seconds=seconds, sources=len(built), flash_attention_sass_HGMMA=hgmma)
-    assert hgmma > 0, "flash_attention.cu has no HGMMA instruction"
-    return {"seconds": seconds, "flash_attention_sass_HGMMA": hgmma}
+    # the bf16 flash and SSD kernels run on the tensor cores: wgmma is HGMMA in the SASS
+    hgmma = {}
+    for source in ("flash_attention.cu", "ssd_scan.cu"):
+        sass = subprocess.run([_cuobjdump(), "-sass", str(built[source][0])],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        hgmma[source] = sum("HGMMA" in line for line in sass.splitlines())
+    r = {"seconds": seconds, "flash_attention_sass_HGMMA": hgmma["flash_attention.cu"],
+         "ssd_scan_sass_HGMMA": hgmma["ssd_scan.cu"]}
+    emit("build", sources=len(built), **r)
+    assert all(n > 0 for n in hgmma.values()), ("no HGMMA instruction", hgmma)
+    return r
 
 
 def _cuobjdump() -> str:
@@ -517,21 +528,25 @@ def ssd_bound(B, S, nh, hd, G, ds, chunk, itemsize: int = 2):
     return nbytes, flops
 
 
-def ssd_case(S: int, gen, ragged: bool = False) -> dict:
-    """Kernel against plain version on the card at mamba2-1.3b's layer shape.
-    y: |Δ| ≤ 2⁻⁷·|y| + 1e-5·max|y| (one bf16 ulp: both sides sum in f32 in
-    other orders, then round); final state: |Δ| ≤ 1e-5·max|S|."""
+def ssd_case(S: int, gen, ragged: bool = False, dtype=None) -> dict:
+    """Kernel against plain version on the card at mamba2-1.3b's layer shape,
+    bf16 (the tensor-core kernel) unless ``dtype`` says otherwise. y: |Δ| ≤
+    rtol·|y| + 1e-5·max|y|, rtol 2⁻⁷ for bf16 (one bf16 ulp: both sides sum in
+    f32 in other orders, then round), 0 for f32; final state: |Δ| ≤
+    1e-5·max|S|. Bound: bytes over HBM, or flops over the peak of the units
+    the dtype's kernel runs on (bf16 tensor cores, or f32 CUDA cores)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan import kernel as SK, ops
 
+    dtype = dtype or torch.bfloat16
     sh = dict(SSD_SHAPE, S=S)
     B, nh, hd, G, ds, chunk = (sh[k] for k in ("B", "nh", "hd", "G", "ds", "chunk"))
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
-    x = rnd(B, S, nh, hd).bfloat16()  # model layout, as ssm_block hands it to ops.ssd
+    x = rnd(B, S, nh, hd).to(dtype)  # model layout, as ssm_block hands it to ops.ssd
     dt = F.softplus(rnd(B, S, nh) - 1.0)
     A = -torch.exp(0.5 * rnd(nh))
-    Bm, Cm = rnd(B, S, G, ds).bfloat16(), rnd(B, S, G, ds).bfloat16()
+    Bm, Cm = rnd(B, S, G, ds).to(dtype), rnd(B, S, G, ds).to(dtype)
     init = 0.1 * rnd(B, nh, hd, ds)
 
     pad = (-S) % chunk
@@ -549,24 +564,32 @@ def ssd_case(S: int, gen, ragged: bool = False) -> dict:
     torch.cuda.synchronize()
     y, y0 = got[0].float(), want[0][:, :, :S].float()
     y_err = float((y - y0).abs().max())
-    y_units = float(((y - y0).abs() / (2.0 ** -7 * y0.abs() + 1e-5 * y0.abs().max())).max())
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    y_units = float(((y - y0).abs() / (rtol * y0.abs() + 1e-5 * y0.abs().max())).max())
     s_err = float((got[1] - want[1]).abs().max())
     s_units = s_err / (1e-5 * float(want[1].abs().max()))
+    tc = SK.tensor_core_route(dtype, hd, ds, chunk)
     r = {"S": S, "padded_S": S + pad, "path": "ops.ssd" if ragged else "ssd_scan_fwd",
+         "dtype": str(dtype).replace("torch.", ""),
+         "kernel": "tensor cores (wgmma)" if tc else "CUDA cores",
          "max_abs_err_y": y_err, "y_err_in_tolerance_units": y_units,
          "max_abs_err_state": s_err, "state_err_in_tolerance_units": s_units,
          "max_abs_y": float(y0.abs().max()), "max_abs_state": float(want[1].abs().max())}
     assert y_units <= 1.0 and s_units <= 1.0, r
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(got[1]).all()), r
     if not ragged:
-        nbytes, flops = ssd_bound(B, S, nh, hd, G, ds, chunk)
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_OPS_PER_S * 1e3
+        nbytes, flops = ssd_bound(B, S, nh, hd, G, ds, chunk, itemsize=x.element_size())
+        peak = BF16_TC_OPS_PER_S if tc else FP32_OPS_PER_S
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
         kernel_ms = time_ms(run, reps=20, warmup=3)
-        r.update(kernel_ms=kernel_ms,
+        r.update(kernel_ms=kernel_ms, **device_and_host(run),
                  plain_ms=time_ms(lambda: SK.ssd_scan_plain(*args, chunk=chunk), reps=3),
                  bytes=nbytes, flops=flops, bytes_ms=bytes_ms, ops_ms=ops_ms,
                  bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 bound_units=("bf16 tensor cores, 989 TFLOP/s" if tc
+                              else "f32 CUDA cores, 67 TFLOP/s"),
+                 f32_cuda_core_ms=flops / FP32_OPS_PER_S * 1e3,
                  kernel_TFLOPs=flops / (kernel_ms * 1e-3) / 1e12, library_ms=None)
     emit("ssd_scan", **r)
     return r
@@ -578,6 +601,7 @@ def phase_ssd_scan() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     full = ssd_case(SSD_SHAPE["S"], gen)
     ssd_case(SSD_RAGGED_S, gen, ragged=True)
+    full["f32"] = ssd_case(SSD_SHAPE["S"], gen, dtype=torch.float32)
     torch.cuda.empty_cache()
     return full
 
@@ -763,8 +787,9 @@ def randn_cuda(shape, gen):
 
 def device_and_host(call) -> dict:
     """The device time of one call (its kernels under ``torch.profiler``) and
-    the host's time to enqueue one, without waiting for the card: where the
-    second is the larger, back-to-back calls (``kernel_ms``) wait on the host."""
+    the host's time to enqueue one, without waiting for the card (the mean
+    of 20 calls): where the second is the larger, back-to-back calls
+    (``kernel_ms``) wait on the host."""
     import torch
 
     prof = profile_device(call)
@@ -844,7 +869,12 @@ def decode_case(case, gen) -> dict:
     except torch.cuda.OutOfMemoryError:
         library_ms, library_kernels = None, ["out of device memory"]
     nbytes, flops = decode_bound(B, Hq, Hkv, S, hd, [S] * B, window)
+    # the entry point as a model calls it, with one int kv_len for every row:
+    # it reaches the kernel as an argument (no device tensor per call)
+    scalar = device_and_host(lambda: ops.flash_decode(q, kc, vc, S, window=window))
     r.update(kernel_ms=kernel_ms, **device_and_host(call), plain_ms=plain_ms,
+             ops_scalar_kv_len_device_ms=scalar["device_ms"],
+             ops_scalar_kv_len_host_enqueue_ms=scalar["host_enqueue_ms"],
              library_ms=library_ms, library_kernels=library_kernels,
              **_bound_fields(nbytes, flops, kernel_ms))
     emit("flash_decode", **r)
@@ -989,14 +1019,19 @@ def profile_device(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}  # kernel names cut to 90 characters; kernels that share those add up
+    counts = {}
     events = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             events += 1
             by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
+            counts[e.name[:90]] = counts.get(e.name[:90], 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"device_ms": sum(by_name.values()), "profiled_wall_ms": wall_ms,
-            "top_kernels_ms": dict(top), "device_events": events}
+            "top_kernels_ms": dict(top), "device_events": events,
+            # the port's own kernels (each in an anonymous namespace of csrc/), by name
+            "port_kernel_counts": {n: c for n, c in counts.items()
+                                   if "(anonymous namespace)" in n}}
 
 
 def _serve(model, params, prompt, use_pallas: bool, audio=None) -> dict:
@@ -1117,6 +1152,11 @@ def phase_serve_mamba2() -> dict:
     assert r["launches"] == {"ssd_scan": MAMBA2_LAYERS, **others}, r["launches"]
     assert r["prefill_launches"] == {"ssd_scan": MAMBA2_LAYERS, **others}, r
     assert r["decode_launches"] == {"ssd_scan": 0, **others}, r
+    # the bf16 prefill runs the tensor-core kernel, once per layer
+    counts = r["prefill_profile"]["port_kernel_counts"]
+    tc = sum(n for name, n in counts.items() if "ssd_scan_tc_kernel<" in name)
+    emit("serve", arch=cfg.name, prefill_ssd_scan_tc_kernel_runs=tc)
+    assert tc == MAMBA2_LAYERS, counts
     del params
     torch.cuda.empty_cache()
     return r
@@ -1263,8 +1303,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:88",
         "launches": mamba2["launches"]["ssd_scan"], "max_abs_err": ssd["max_abs_err_y"],
         "ms": ssd["kernel_ms"], "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
-        "bound_by": ssd["bound_by"], "library_ms": None,
+        "bound_by": ssd["bound_by"], "bound_units": ssd["bound_units"], "library_ms": None,
         "library_note": "no single PyTorch call computes the SSD chunk scan",
+        "device_ms": ssd["device_ms"], "host_enqueue_ms": ssd["host_enqueue_ms"],
+        "f32_ms": ssd["f32"]["kernel_ms"], "f32_bound_ms": ssd["f32"]["bound_ms"],
     })
     kernels.append({
         "name": "flash_attention", "route": "cuda",
@@ -1290,7 +1332,8 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "library_note": note, "case": head["case"],
             "cases": [{k: r[k] for k in ("case", "kernel_ms", "device_ms", "host_enqueue_ms",
-                                         "bound_ms", "plain_ms", "library_ms")}
+                                         "ops_scalar_kv_len_host_enqueue_ms", "bound_ms",
+                                         "plain_ms", "library_ms") if k in r}
                       for r in full.values()],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,7 +2,8 @@
 
 Each source in ``src/repro_torch/csrc/`` exposes a plain C interface and is
 compiled with ``nvcc`` for ``sm_90a`` at first use into ``build/repro_torch/``
-(the file name carries a hash of source and flags, so an edit rebuilds).
+(the file name carries a hash of the source, the shared headers
+``csrc/*.cuh`` and the flags, so an edit to any of them rebuilds).
 Nothing here runs when a module is imported: the CPU tests import every
 module on a host without ``nvcc``.
 """
@@ -33,6 +34,11 @@ def sources() -> Tuple[Path, ...]:
     return tuple(sorted(CSRC.glob("*.cu")))
 
 
+def headers() -> Tuple[Path, ...]:
+    """The headers the CUDA sources share (part of every build's tag)."""
+    return tuple(sorted(CSRC.glob("*.cuh")))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -43,12 +49,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
 
 
+def tag(source: Path) -> str:
+    """What a build's file name carries: a hash of the source, every shared
+    header and the flags (a header is hashed into every source's tag, since
+    nothing here reads which source includes it)."""
+    src = source.read_bytes() + b"".join(h.read_bytes() for h in headers())
+    return hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
 def build(source: Path) -> Tuple[Path, str]:
     """Compile one kernel library if this source/flags pair has not been built.
     Returns ``(path, compiler_log)``; the log is empty when it was cached."""
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{source.stem}-{tag}.so"
+    out = BUILD_DIR / f"lib{source.stem}-{tag(source)}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -6,13 +6,16 @@ PyTorch version.
 (B, nh, S, hd), dt (B, nh, S) f32, A (nh,) f32, Bm/Cm (B, G, S, ds),
 init_state (B, nh, hd, ds) f32; it returns y in x's dtype and the final state
 in f32. The CUDA source is ``src/repro_torch/csrc/ssd_scan.cu``; it says what
-bounds the kernel (f32 operations) and how one block carries the state of
-one (b, h) over its chunks. It is built at first use by ``kernels/build.py``
-and bound with ``ctypes``.
+bounds the function and how one block carries the state of one (b, h) over
+its chunks. It has two designs, chosen by :func:`tensor_core_route` before
+the launch: bf16 x, B and C with chunk 64, hd 64 or 128 and ds 64 or 128
+run on the tensor cores (wgmma; C·Bᵀ once per (b, group, chunk) into a
+scratch array, then the chunk loop), everything else on the CUDA cores. It
+is built at first use by ``kernels/build.py`` and bound with ``ctypes``.
 
 A tensor on the CPU goes to :func:`ssd_scan_plain`; a CUDA tensor launches the
 kernel or raises — there is no fallback. ``ssd_scan_fwd.launches`` counts the
-launches.
+launches (one per call, whichever design runs).
 """
 from __future__ import annotations
 
@@ -35,7 +38,21 @@ def _library():
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ssd_scan_fwd.argtypes = [P] * 8 + [I] * 8 + [P]
     lib.ssd_scan_fwd.restype = I
+    lib.ssd_scan_fwd_tc.argtypes = [P] * 9 + [I] * 6 + [P]
+    lib.ssd_scan_fwd_tc.restype = I
     return lib
+
+
+#: the chunk, head dims and state dims the tensor-core kernel takes (bf16)
+TC_CHUNK, TC_HEAD_DIMS, TC_STATE_DIMS = 64, (64, 128), (64, 128)
+
+
+def tensor_core_route(dtype: torch.dtype, hd: int, ds: int, chunk: int) -> bool:
+    """True where the tensor-core kernel runs: bf16 at chunk 64 with hd and
+    ds each 64 or 128 (the state's rows of one warpgroup stay in its
+    registers). Everything else takes the CUDA-core kernel."""
+    return (dtype == torch.bfloat16 and chunk == TC_CHUNK and hd in TC_HEAD_DIMS
+            and ds in TC_STATE_DIMS)
 
 
 def smem_bytes(hd: int, ds: int, chunk: int) -> int:
@@ -89,23 +106,37 @@ def ssd_scan_fwd(
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
     B, nh, S, hd = x.shape
     G, ds = Bm.shape[1], Bm.shape[3]
-    if chunk % 4 or hd % 4 or ds % 4:
-        raise ValueError(f"ssd_scan: chunk, hd and ds must be multiples of 4, "
-                         f"got {chunk}, {hd}, {ds}")
-    if smem_bytes(hd, ds, chunk) > MAX_SMEM:
-        raise ValueError(f"ssd_scan: hd = {hd}, ds = {ds}, chunk = {chunk} need "
-                         f"{smem_bytes(hd, ds, chunk)} bytes of shared memory, above {MAX_SMEM}")
     y = torch.empty_like(x)
     final = torch.empty((B, nh, hd, ds), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _library().ssd_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            init_state.data_ptr(), y.data_ptr(), final.data_ptr(),
-            B, nh, G, S, hd, ds, chunk, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if tensor_core_route(x.dtype, hd, ds, chunk):
+        if B > 65535 or nh > 65535:
+            raise ValueError(f"ssd_scan: the grid takes B and nh up to 65535, got {B}, {nh}")
+        if any(t.data_ptr() % 16 for t in (x, Bm, Cm, init_state)):
+            raise ValueError("ssd_scan: x, Bm, Cm (read by TMA) and init_state (read in "
+                             "pairs) must be 16-byte aligned on the card")
+        cb = torch.empty((B, G, S // chunk, chunk, chunk), dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            err = _library().ssd_scan_fwd_tc(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                init_state.data_ptr(), y.data_ptr(), final.data_ptr(), cb.data_ptr(),
+                B, nh, G, S, hd, ds, stream)
+    else:
+        if chunk % 4 or hd % 4 or ds % 4:
+            raise ValueError(f"ssd_scan: chunk, hd and ds must be multiples of 4, "
+                             f"got {chunk}, {hd}, {ds}")
+        if smem_bytes(hd, ds, chunk) > MAX_SMEM:
+            raise ValueError(f"ssd_scan: hd = {hd}, ds = {ds}, chunk = {chunk} need "
+                             f"{smem_bytes(hd, ds, chunk)} bytes of shared memory, above "
+                             f"{MAX_SMEM}")
+        with torch.cuda.device(x.device):
+            err = _library().ssd_scan_fwd(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                init_state.data_ptr(), y.data_ptr(), final.data_ptr(),
+                B, nh, G, S, hd, ds, chunk, int(x.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd_scan launch failed: error {err} (a CUDA error; "
+                           f"1000 + n: the driver refused a TMA tensor map)")
     ssd_scan_fwd.launches += 1
     return y, final
 
@@ -138,7 +169,7 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, init_state, *, chunk: int = 64):
         ys.append((y_intra + y_inter).to(x.dtype))
         w = torch.exp(total - cum)
         state = torch.exp(total)[..., None] * state + (dx * w[..., None]).transpose(-1, -2) @ bc
-    return torch.cat(ys, dim=2), state
+    return (torch.cat(ys, dim=2) if ys else torch.empty_like(x)), state  # S = 0: init
 
 
 #: every kernel wrapper of this module, by name (each counts its launches)

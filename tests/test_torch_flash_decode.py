@@ -198,3 +198,38 @@ def test_split_count_fills_the_card_and_follows_the_window():
     assert ns(2, 4, 2, 100, None, 132) == 2  # a short cache
     assert ns(1, 16, 2, 64, 0, 132) == 1  # an empty window
     assert ns(4096, 8, 8, 4096, None, 132) == 1
+
+
+@pytest.mark.parametrize("kv_len,window", [(77, None), (128, 32), (0, None), (5, 64)],
+                         ids=["77", "128-window", "0", "5-window"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_scalar_kv_len_matches_the_tensor_path_and_the_reference_ops(kv_len, window, dtype):
+    """``ops.flash_decode`` with a Python int kv_len (the kernel's scalar
+    argument on the card) gives the same bits as the same call with that
+    length in a (B,) int32 tensor, and matches the reference's ``ops`` in
+    interpret mode; a numpy integer takes the scalar path too."""
+    td, jd = dtype
+    q, k, v = inputs(2, 8, 4, 128, 64, seed=9)
+    tq, tk, tv = (torch.from_numpy(x).to(td) for x in (q, k, v))
+    got = t_ops.flash_decode(tq, tk, tv, kv_len, window=window)
+    per_row = t_ops.flash_decode(tq, tk, tv, torch.full((2,), kv_len, dtype=torch.int32),
+                                 window=window)
+    assert torch.equal(got, per_row)
+    assert torch.equal(t_ops.flash_decode(tq, tk, tv, np.int64(kv_len), window=window), got)
+    want = j_ops.flash_decode(*(jnp.asarray(x, jd) for x in (q, k, v)),
+                              jnp.asarray(kv_len, jnp.int32), window=window, interpret=True)
+    within(got.float().numpy(), np.asarray(want.astype(jnp.float32)), td, "scalar kv_len")
+
+
+def test_scalar_kv_len_is_refused_outside_int32_or_when_not_an_integer():
+    """The kernel wrapper takes kv_len as a (B,) int32 tensor or one Python
+    int; an int beyond int32, a float, a bool or a string is refused on every
+    device, before anything is launched."""
+    q, k, v = kernel_layout(*inputs(2, 4, 2, 16, 64, seed=0), torch.float32)
+    fd = t_kernel.flash_decode_fwd
+    before = fd.launches
+    assert torch.equal(fd(q, k, v, 9), fd(q, k, v, torch.full((2,), 9, dtype=torch.int32)))
+    for bad in (1 << 40, -(1 << 31) - 1, 3.5, True, "9"):
+        with pytest.raises(ValueError, match="kv_len"):
+            fd(q, k, v, bad)
+    assert fd.launches == before

@@ -244,13 +244,19 @@ def _bits(t):
 # ---------------------------------------------------------------------------
 
 #: (B, S, nh, hd, G, ds, chunk): small shapes with ragged tiles and groups, the
-#: reduced mamba2-1.3b layer and mamba2-1.3b's full prefill layer
+#: reduced mamba2-1.3b layer and mamba2-1.3b's full prefill layer, then shapes
+#: inside the tensor-core kernel's domain (bf16 there; f32 takes the CUDA
+#: cores): groups of 2, several chunks, hd 128, ds 64
 SSD_SHAPES = [
     (1, 64, 2, 32, 1, 16, 16),
     (2, 96, 4, 32, 2, 32, 32),
     (2, 64, 16, 32, 1, 32, 16),
     (1, 256, 4, 64, 1, 128, 64),
     (4, 2048, 64, 64, 1, 128, 64),
+    (2, 256, 4, 128, 2, 64, 64),
+    (1, 320, 6, 64, 2, 64, 64),
+    (2, 192, 4, 128, 1, 128, 64),
+    (1, 64, 2, 64, 2, 128, 64),
 ]
 
 
@@ -298,6 +304,50 @@ def test_cuda_ssd_scan_matches_plain(shape, dtype):
     y_err, s_err = ssd_errors(got, want)
     assert y_err <= 1.0 and s_err <= 1.0, (y_err, s_err)
     assert bool(torch.isfinite(got[0]).all()) and bool(torch.isfinite(got[1]).all())
+
+
+@pytest.mark.parametrize("shape", [(4, 2048, 64, 64, 1, 128, 64), (2, 256, 4, 128, 2, 64, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_ssd_scan_gives_the_same_bits_twice_on_its_route(shape, dtype):
+    """Two launches give the same bits, and the profile shows the kernel of
+    the route: bf16 at chunk 64 the tensor-core kernel (after the C·Bᵀ
+    kernel), f32 the CUDA-core kernel."""
+    _need_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssd_scan import kernel as SK
+
+    B, S, nh, hd, G, ds, chunk = shape
+    args = ssd_inputs(B, S, nh, hd, G, ds, dtype, seed=S + hd)
+    first = SK.ssd_scan_fwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = SK.ssd_scan_fwd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    tc = SK.tensor_core_route(dtype, hd, ds, chunk)
+    assert tc == (dtype == torch.bfloat16)
+    want = ["ssd_cb_kernel", "ssd_scan_tc_kernel"] if tc else ["ssd_scan_kernel"]
+    assert len(names) == len(want), names
+    assert all(sum(w + "<" in n for n in names) == 1 for w in want), names
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_ssd_scan_with_no_steps_returns_the_initial_state(dtype):
+    """S = 0 on either route (bf16 at chunk 64 is the tensor-core one): y is
+    empty and the final state is init, bit for bit, as in the plain version."""
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import kernel as SK
+
+    args = ssd_inputs(2, 0, 4, 64, 2, 128, dtype, seed=3)
+    before = SK.ssd_scan_fwd.launches
+    y, final = SK.ssd_scan_fwd(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert SK.ssd_scan_fwd.launches == before + 1
+    assert y.shape == (2, 4, 0, 64) and torch.equal(final, args[-1])
+    assert torch.equal(final, SK.ssd_scan_plain(*args, chunk=64)[1])
 
 
 def test_cuda_ssd_ops_pads_and_continues():
@@ -564,6 +614,31 @@ def test_cuda_flash_decode_matches_plain(case, dtype):
     assert flash_error(got, want) <= 1.0
     empty = [i for i, n in enumerate(kv_len) if n <= 0 or window == 0]
     assert all(bool((got[i] == 0).all()) for i in empty)
+
+
+@pytest.mark.parametrize("case", [(2, 16, 8, 4097, 128, 4000, None),
+                                  (1, 8, 4, 70001, 256, 65536, 1024),
+                                  (3, 4, 4, 100, 64, 0, None), (2, 8, 2, 96, 32, 90, 50)],
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_flash_decode_scalar_kv_len_matches_the_tensor_path(case, dtype):
+    """A Python int kv_len (a kernel argument, no device tensor) gives the
+    same bits as that length in a (B,) int32 tensor on the card."""
+    _need_cuda()
+    from repro_torch.kernels.flash_decode import kernel as DK
+
+    B, Hq, Hkv, S, hd, n, window = case
+    q, k, v, kl = decode_inputs(B, Hq, Hkv, S, hd, (n,) * B, dtype, seed=n + hd)
+    before = DK.flash_decode_fwd.launches
+    got = DK.flash_decode_fwd(q, k, v, n, window=window)
+    want = DK.flash_decode_fwd(q, k, v, kl, window=window)
+    torch.cuda.synchronize()
+    assert DK.flash_decode_fwd.launches == before + 2
+    assert torch.equal(got, want)
+    if n > 0:
+        assert flash_error(got, DK.flash_decode_plain(q, k, v, n, window=window)) <= 1.0
+    else:  # no row sees a key
+        assert bool((got == 0).all())
 
 
 def test_cuda_flash_decode_ops_reads_the_model_layout_cache_in_place():

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and not ``tools/kernel_ab.py`` imports JAX or anything of
+the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_ab.py"]
 
 
 def _module_name(path: Path) -> str:

@@ -176,6 +176,105 @@ def test_ssd_scan_wrapper_checks_on_the_cpu():
     assert t_kernel.ssd_scan_fwd.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_scan_with_no_steps_returns_the_initial_state(dtype):
+    """S = 0: y is empty and the final state is init, bit for bit (the CUDA
+    routes copy init over as well; tests/test_torch_gpu.py)."""
+    _, (tx, tdt, tA, tB, tC, ts) = both(ssd_inputs(2, 0, 4, 64, 2, 128, seed=1))
+    m = lambda t: t.movedim(1, 2).contiguous()  # noqa: E731
+    y, s = t_kernel.ssd_scan_fwd(m(tx).to(dtype), m(tdt), tA, m(tB).to(dtype), m(tC).to(dtype),
+                                 ts, chunk=64)
+    assert y.shape == (2, 4, 0, 64) and y.dtype == dtype and torch.equal(s, ts)
+
+
+def _bf16_terms(v, n):
+    """v as n bf16 terms, each the bf16 rounding of what the earlier ones
+    leave (hi, then lo, ...), in f32."""
+    out = []
+    for _ in range(n):
+        out.append(v.bfloat16().float())
+        v = v - out[-1]
+    return out
+
+
+def emulate_tensor_core_scan(x, dt, A, Bm, Cm, init, chunk=64, terms=(2, 2, 3)):
+    """The bf16 tensor-core kernel's arithmetic in f32 torch on the CPU,
+    kernel layout: C·Bᵀ of exact bf16 values with f32 sums; per chunk the
+    cumsum of dt·A in order, M' = (C·Bᵀ·L)·dt_j with L = 2^((cumᵢ − cumⱼ)·log2 e)
+    (the product rounded to f32, as the kernel's); y = exp(cum)·(C·Sᵀ) + M'·x
+    with S in ``terms[0]`` bf16 terms and M' in ``terms[1]``; S ← exp(total)·S
+    + (x·dt·w)ᵀ·B with x·dt·w in ``terms[2]``; y rounded to bf16."""
+    ts, tm, tb = terms
+    B, nh, S, hd = x.shape
+    rep = nh // Bm.shape[1]
+    Bh, Ch = (t.repeat_interleave(rep, 1).float() for t in (Bm, Cm))
+    xf, st, ys = x.float(), init.float().clone(), []
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    for c0 in range(0, S, chunk):
+        xc, dtc = xf[:, :, c0:c0 + chunk], dt[:, :, c0:c0 + chunk].float()
+        bc, cc = Bh[:, :, c0:c0 + chunk], Ch[:, :, c0:c0 + chunk]
+        cum, run = torch.empty_like(dtc), torch.zeros_like(dtc[..., 0])
+        for l in range(chunk):
+            run = run + dtc[..., l] * A[None, :]
+            cum[..., l] = run
+        total = cum[..., -1:]
+        L = torch.exp2((cum[..., :, None] - cum[..., None, :]) * np.float32(1.4426950408889634))
+        M = torch.where(tri, ((cc @ bc.transpose(-1, -2)) * L) * dtc[..., None, :],
+                        torch.zeros(()))
+        y = sum(cc @ t.transpose(-1, -2) for t in _bf16_terms(st, ts)) * torch.exp(cum)[..., None]
+        for t in _bf16_terms(M, tm):
+            y = y + t @ xc
+        ys.append(y.bfloat16())
+        operand = xc * (dtc * torch.exp(total - cum))[..., None]
+        st = torch.exp(total)[..., None] * st
+        for t in _bf16_terms(operand, tb):
+            st = st + t.transpose(-1, -2) @ bc
+    return torch.cat(ys, 2), st
+
+
+def _tc_units(got, want):
+    """(y, state) errors in units of the held tolerances: y |Δ| ≤ 2⁻⁷·|y| +
+    1e-5·max|y| (one bf16 ulp), state |Δ| ≤ 1e-5·max|S|."""
+    (y, s), (y0, s0) = got, want
+    y, y0 = y.float(), y0.float()
+    y_units = float(((y - y0).abs() / (2.0 ** -7 * y0.abs() + 1e-5 * y0.abs().max())).max())
+    return y_units, float((s - s0).abs().max() / (1e-5 * s0.abs().max()))
+
+
+@pytest.mark.parametrize("B,S,nh,hd,G,ds", [(1, 512, 4, 64, 1, 128), (2, 192, 4, 128, 2, 64)],
+                         ids=["mamba2-layer-reduced", "hd128-g2-ds64"])
+def test_tensor_core_numerics_hold_the_tolerance(B, S, nh, hd, G, ds):
+    """The bf16 tensor-core kernel's rounding, emulated, stays within the
+    held tolerances of the plain version (y one bf16 ulp, state
+    1e-5·max|S|) with S and M' in two bf16 terms and the state update's
+    x·dt·w in three; one term for every f32 operand breaks them."""
+    g = torch.Generator().manual_seed(S + hd)
+    rnd = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    x = rnd(B, nh, S, hd).bfloat16()
+    dt = torch.nn.functional.softplus(rnd(B, nh, S) - 1.0)
+    A = -torch.exp(0.5 * rnd(nh))
+    Bm, Cm = rnd(B, G, S, ds).bfloat16(), rnd(B, G, S, ds).bfloat16()
+    init = 0.1 * rnd(B, nh, hd, ds)
+    assert t_kernel.tensor_core_route(x.dtype, hd, ds, 64)
+    want = t_kernel.ssd_scan_plain(x, dt, A, Bm, Cm, init, chunk=64)
+    y_units, s_units = _tc_units(emulate_tensor_core_scan(x, dt, A, Bm, Cm, init), want)
+    assert y_units <= 1.0 and s_units <= 1.0, (y_units, s_units)
+    y_units, s_units = _tc_units(emulate_tensor_core_scan(x, dt, A, Bm, Cm, init,
+                                                          terms=(1, 1, 1)), want)
+    assert y_units > 1.0 and s_units > 1.0, (y_units, s_units)
+
+
+def test_tensor_core_route_takes_bf16_at_chunk_64_and_the_widths_it_holds():
+    """The route is chosen from dtype and shape before any launch: bf16,
+    chunk 64, hd and ds each 64 or 128; f32 and every other shape take the
+    CUDA-core kernel (mamba2-1.3b: hd 64, ds 128)."""
+    route = t_kernel.tensor_core_route
+    assert route(torch.bfloat16, 64, 128, 64) and route(torch.bfloat16, 128, 64, 64)
+    assert not route(torch.float32, 64, 128, 64)
+    assert not route(torch.bfloat16, 64, 128, 32)
+    assert not route(torch.bfloat16, 32, 128, 64) and not route(torch.bfloat16, 64, 256, 64)
+
+
 def _block_params(cfg_name="mamba2-1.3b"):
     """One SSM layer's params drawn by the reference, at reduced size."""
     jcfg = dataclasses.replace(j_get_config(cfg_name).reduced(), compute_dtype="float32")
