@@ -16,12 +16,14 @@ Phases, one JSON line each:
   server_apply  the fused server-step kernel against its plain PyTorch version at
                 photon-75m's flat size (Np = 74,104,832, C = 4) for FedAvg,
                 FedMom and FedAdam, with and without DP noise, and FedAvg at
-                C = 40 (two chunks of clients): max errors, run-to-run bitwise
-                norms, kernel / plain / bound times
+                C = 2 (the async flush's buffer) and C = 40 (two chunks of
+                clients): max errors, run-to-run bitwise norms, kernel /
+                plain / bound times
   topk_mask_ef, sr_bf16, int8_quant, int8_dequant
-                each uplink codec kernel at Np = 74,104,832, C = 4, bitwise
-                against its plain version: kernel / plain / bound times, GB/s;
-                the top-k phase also times the threshold selection
+                each uplink codec kernel at Np = 74,104,832, C = 4 (a sync
+                cohort) and C = 1 (one async client), bitwise against its
+                plain version: kernel / plain / bound times, GB/s; the top-k
+                phase also times the threshold selection
   ssd_scan      the SSD chunk-scan kernel against its plain version at
                 mamba2-1.3b's full per-layer prefill shape (B = 4, S = 2048,
                 nh = 64, hd = 64, G = 1, ds = 128, chunk = 64), from a
@@ -61,7 +63,8 @@ Phases, one JSON line each:
                 as above, and at small cases (ragged widths, rows too long for
                 registers, f32): max error, kernel / plain / F.rms_norm / bound
   check         a reduced photon round on the card agrees with the same round on
-                the CPU (float32 compute), with the float32 and the top-k uplink;
+                the CPU (float32 compute), with the float32 and the top-k uplink,
+                and so do two reduced async updates (heavy stragglers);
                 reduced mamba2-1.3b, photon-75m and whisper-large-v3 ``generate``
                 (float32, use_pallas) give the same tokens on the card and on
                 the CPU
@@ -69,6 +72,17 @@ Phases, one JSON line each:
                 for two rounds at full width on the card, with ``--uplink``
                 float32, topk, bf16 and int8; the kernel launch counts are
                 zeroed just before each and read just after
+  train_async   the same launcher with ``--aggregation async --rounds 3
+                --straggler-profile heavy --dropout-rate 0.1`` (K = 4, a buffer
+                of M = 2), once per ``--uplink``, counted as above and held
+                exactly to the driver's own counts: ``server_apply`` once per
+                non-empty flush (= 3), the encode kernel once per client phase,
+                ``int8_dequant`` once per admission, no other kernel. Per
+                update: seconds, admitted deltas, tokens/s, staleness, val_ppl,
+                the simulated speedup; per run: peak device memory, the
+                device's busy share of one more update under torch.profiler,
+                and the wall time of the parts of one more (client phases,
+                admissions, flush, the rest) and of one validation
   serve         full-width mamba2-1.3b (48 layers, random weights from seed 0):
                 ``Model.prefill(use_pallas=True)`` at B = 4, S = 2048 against
                 ``use_pallas=False`` on the card (float32 compute: held to a
@@ -89,7 +103,10 @@ Phases, one JSON line each:
                 then ``generate(use_pallas=True)``: exactly 32 flash_attention
                 launches per prefill, none per decode step, no other kernel;
                 the serve numbers and profile as above
-  kernels       one line {"kernels": [...]} with every kernel's numbers
+  kernels       one line {"kernels": [...]} with every kernel's numbers; the
+                fedcore kernels' entries add the async path's launches
+                (``async_launches``) and the kernel's numbers at the async
+                path's shape (``async_case``: C = 2 or C = 1)
 
 No model path launches flash_decode or rmsnorm (none does in the JAX package
 either): the train and serve phases hold their counts at 0, and their
@@ -161,6 +178,10 @@ RMS_SMALL = [(105, 1000), (3, 8192), (7, 4096), (64, 2048), (5, 12288)]
 NP_PHOTON_75M = 74_104_832  # photon-75m's 74,100,992 params padded to 8192-blocks
 COHORT = 4
 WIDE_COHORT = 40  # more clients than one server_apply launch holds (32)
+#: the async path's shapes (``chip_smoke.py`` train_async): server_apply over
+#: the (M, Np) buffer, the codecs over one client's (1, Np) delta
+ASYNC_BUFFER = 2
+ASYNC_COHORT = 1
 TOPK_FRACTION = 0.05  # the launcher's --topk-fraction default
 #: (kernel, the --uplink that runs it, line of the TPU kernel, why no library call)
 CODEC_KERNELS = (
@@ -269,7 +290,7 @@ def _server_apply_case(opt: str, with_noise: bool, gen, dev: str = "cuda",
     from repro_torch.kernels.fedcore import kernel as K
 
     deltas = torch.randn((C, Np), generator=gen, device=dev) * 1e-2
-    w = torch.tensor([1.0, 2.0, 0.0, 0.5] * (C // 4), device=dev)  # zero-weight clients
+    w = torch.tensor(([1.0, 2.0, 0.0, 0.5] * C)[:C], device=dev)  # zero-weight clients
     wn = w / w.sum()
     params = torch.randn(Np, generator=gen, device=dev) * 0.02
     # optimizer lanes as one earlier outer step with pseudo-gradient g0 left them
@@ -341,10 +362,13 @@ def phase_server_apply() -> dict:
             results[(opt, with_noise)] = r
             torch.cuda.empty_cache()
     # a cohort wider than one launch's 32 register accumulators: two chunks
-    r = _server_apply_case("fedavg", False, gen, C=WIDE_COHORT)
-    emit("server_apply", **r)
-    results[("fedavg", False, WIDE_COHORT)] = r
-    torch.cuda.empty_cache()
+    # the async flush's (M, Np) buffer; a cohort wider than one launch's
+    # 32 register accumulators (two chunks)
+    for C in (ASYNC_BUFFER, WIDE_COHORT):
+        r = _server_apply_case("fedavg", False, gen, C=C)
+        emit("server_apply", **r)
+        results[("fedavg", False, C)] = r
+        torch.cuda.empty_cache()
     return results
 
 
@@ -355,7 +379,8 @@ def _bits(t):
 
 
 def _codec_case(name: str, kernel, plain, args, nbytes: int, extra=None) -> dict:
-    """Kernel against plain, bitwise, then both timed at the given inputs."""
+    """Kernel against plain, bitwise, then both timed at the given inputs
+    (``args[0]`` is the (C, Np) buffer)."""
     import torch
 
     got = kernel(*args)
@@ -370,7 +395,8 @@ def _codec_case(name: str, kernel, plain, args, nbytes: int, extra=None) -> dict
     kernel_ms = time_ms(lambda: kernel(*args), reps=20, warmup=3)
     plain_ms = time_ms(lambda: plain(*args), reps=5)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    r = {"C": COHORT, "Np": NP_PHOTON_75M, "bitwise": bitwise, "max_abs_err": max_err,
+    r = {"C": args[0].shape[0], "Np": args[0].shape[1], "bitwise": bitwise,
+         "max_abs_err": max_err,
          "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": bound_ms,
          "bound_by": "bytes", "kernel_GBps": nbytes / (kernel_ms * 1e-3) / 1e9,
          **(extra or {})}
@@ -380,20 +406,27 @@ def _codec_case(name: str, kernel, plain, args, nbytes: int, extra=None) -> dict
 
 
 def phase_codecs() -> dict:
-    """The four uplink codec kernels at photon-75m's packed cohort buffer."""
+    """The four uplink codec kernels at photon-75m's packed buffer: the sync
+    path's cohort (C = 4) and the async path's single client (C = 1)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.compression import int8_scale
-    from repro_torch.kernels.fedcore import FusedTopKCodec, kernel as K
     from repro_torch.kernels.fedcore.ops import BLOCK, FlatSpec
 
-    C, Np = COHORT, NP_PHOTON_75M
     shapes = photon_leaf_shapes(get_config("photon-75m"))
     n = sum(math.prod(sh) for sh in shapes)
     spec = FlatSpec(shapes=tuple(shapes), n=n, n_pad=-(-n // BLOCK) * BLOCK)
-    assert spec.n_pad == Np, (spec.n_pad, Np)
-    offsets = spec.offsets + (n,)
+    assert spec.n_pad == NP_PHOTON_75M, (spec.n_pad, NP_PHOTON_75M)
     gen = torch.Generator(device="cuda").manual_seed(1)
+    return {C: _codec_cases(C, shapes, spec.offsets + (n,), gen)
+            for C in (COHORT, ASYNC_COHORT)}
+
+
+def _codec_cases(C: int, shapes, offsets, gen) -> dict:
+    import torch
+    from repro_torch.core.compression import int8_scale
+    from repro_torch.kernels.fedcore import FusedTopKCodec, kernel as K
+
+    Np, n = NP_PHOTON_75M, offsets[-1]
     x = torch.zeros((C, Np), device="cuda")
     x[:, :n] = torch.randn((C, n), generator=gen, device="cuda") * 1e-3
     out = {}
@@ -454,6 +487,29 @@ def phase_check() -> None:
              cpu={k: rows["cpu"][k] for k in keys}, rel_err=rel)
         assert all(math.isfinite(rows["cuda"][k]) for k in keys), rows["cuda"]
         assert max(rel.values()) <= 1e-3, (uplink, rel)
+    # two async updates: the simulated timeline is the same on both devices,
+    # the numbers agree as the sync round's do
+    for uplink in ("float32", "topk"):
+        hist = {}
+        for dev in ("cpu", "cuda"):
+            args = T.parse_args(["--reduced", "--rounds", "2", "--local-steps", "2",
+                                 "--clients", "4", "--population", "8", "--seq-len", "64",
+                                 "--fused-server", "--aggregation", "async",
+                                 "--straggler-profile", "heavy", "--uplink", uplink,
+                                 "--device", dev])
+            hist[dev] = T.run(args, cfg=cfg)["history"]
+        keys = ("train_loss", "pseudo_grad_norm", "global_model_norm", "val_ppl")
+        keys += ("uplink_residual_norm",) if uplink == "topk" else ()
+        for cpu, card in zip(hist["cpu"], hist["cuda"]):
+            rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in keys}
+            emit("check", aggregation="async", uplink=uplink, update=card["update"],
+                 sim_time=card["sim_time"], cuda={k: card[k] for k in keys},
+                 cpu={k: cpu[k] for k in keys}, rel_err=rel)
+            for k in ("sim_time", "buffer_fill", "staleness_mean", "deltas_admitted"):
+                assert card[k] == cpu[k], (uplink, k, card[k], cpu[k])
+            assert all(math.isfinite(card[k]) for k in keys), card
+            assert max(rel.values()) <= 1e-3, (uplink, rel)
+        assert len(hist["cuda"]) == len(hist["cpu"]) == 2
 
 
 #: the kernels each train phase must launch once per round, and no other
@@ -507,6 +563,110 @@ def phase_train(uplink: str) -> dict:
     del out
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_train_async(uplink: str) -> dict:
+    """photon-75m's async path; each kernel's launches must equal the driver's
+    counter that ``ASYNC_KERNEL_COUNTERS`` names for it, and no other kernel
+    may launch."""
+    import torch
+    from repro_torch.core.aggregator import ASYNC_KERNEL_COUNTERS
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_leaves
+
+    args = T.parse_args(["--arch", "photon-75m", "--aggregation", "async", "--fused-server",
+                         "--rounds", "3", "--straggler-profile", "heavy",
+                         "--dropout-rate", "0.1", "--uplink", uplink, "--device", "cuda"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = T.run(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    drv = out["driver"]
+    counts = {"n_flushes": drv.n_flushes, "n_client_phases": drv.n_client_phases,
+              "n_admissions": drv.n_admissions}
+
+    tokens_per_delta = args.local_steps * args.batch * args.seq_len
+    for row in out["history"]:
+        emit("train_async", uplink=uplink, update=row["update"], seconds=row["seconds"],
+             deltas=row["buffer_fill"],
+             tokens_per_s=row["buffer_fill"] * tokens_per_delta / row["seconds"],
+             staleness_mean=row["staleness_mean"], staleness_max=row["staleness_max"],
+             loss=row["train_loss"], val_ppl=row["val_ppl"],
+             pseudo_grad_norm=row["pseudo_grad_norm"], sim_time=row["sim_time"],
+             wallclock_speedup=row["wallclock_speedup"],
+             uplink_bytes_per_client=row["uplink_bytes_per_client"])
+    # one more update (no validation) under the profiler: the device's busy
+    # share of the event loop — client phases, admissions, the flush; then
+    # one more, its parts timed apart
+    prof = profile_device(lambda: drv.run_updates(1))
+    parts = async_update_parts(drv, out, args)
+    leaves = tree_leaves(out["state"]["params"])
+    emit("train_async", uplink=uplink, total_seconds=seconds, launches=launches, **counts,
+         dispatched=drv.n_dispatched, sim_time=drv.sim_time,
+         n_params=sum(x.numel() for x in leaves), peak_mem_GB=peak / 1e9,
+         profiled_update_device_ms=prof["device_ms"],
+         profiled_update_wall_ms=prof["profiled_wall_ms"],
+         busy_share=prof["device_ms"] / prof["profiled_wall_ms"],
+         top_kernels_ms=prof["top_kernels_ms"], update_parts_ms=parts)
+    assert all(bool(torch.isfinite(x).all()) for x in leaves), "non-finite params"
+    for row in out["history"]:
+        assert math.isfinite(row["train_loss"]) and math.isfinite(row["val_ppl"]), row
+    assert len(out["history"]) == args.rounds and counts["n_flushes"] == args.rounds, counts
+    counters = ASYNC_KERNEL_COUNTERS[uplink]
+    want = {name: counts[counters[name]] if name in counters else 0 for name in launches}
+    assert launches == want, (uplink, launches, want)
+    del out, drv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def async_update_parts(drv, out, args) -> dict:
+    """Wall ms of one async update by part, each part between two device
+    syncs: the client phases (``run_clients``), the admissions (decode and
+    buffer write), the flush, the rest of the event loop (batches, the loss
+    and residual-norm reads, dispatch, the row), then one validation as the
+    launcher runs it after each update."""
+    import torch
+    from repro_torch.core import aggregator as A
+    from repro_torch.data import validation_stream
+    from repro_torch.metrics import evaluate_perplexity
+
+    parts = {"client_phases": 0.0, "admissions": 0.0, "flush": 0.0}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[name] += (time.perf_counter() - t0) * 1e3
+            return r
+        return call
+
+    run_clients = A.run_clients
+    A.run_clients = timed("client_phases", run_clients)
+    drv.admit, drv.flush = timed("admissions", drv.admit), timed("flush", drv.flush)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv.run_updates(1)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        A.run_clients = run_clients
+        del drv.admit, drv.flush
+    stream = validation_stream(args.seq_len, out["config"].vocab_size, args.heterogeneous)
+    t0 = time.perf_counter()
+    evaluate_perplexity(out["model"], drv.state["params"], stream, batches=args.eval_batches,
+                        batch_size=args.batch, device=drv.device)
+    torch.cuda.synchronize()
+    return dict(parts, rest=total - sum(parts.values()), update=total,
+                validation=(time.perf_counter() - t0) * 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -1252,7 +1412,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.kernels.fedcore import kernel  # noqa: F401  (fails outside a checkout)
+    from repro_torch.core.aggregator import ASYNC_KERNEL_COUNTERS  # fails outside a checkout
 
     # float32 products in full float32 (the plain versions' and the checks' numerics)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1270,17 +1430,24 @@ def main() -> int:
     phase_check()
     phase_serve_check()
     launches = {uplink: phase_train(uplink) for uplink in TRAIN_KERNELS}
+    async_launches = {uplink: phase_train_async(uplink) for uplink in ASYNC_KERNEL_COUNTERS}
     mamba2 = phase_serve_mamba2()
     phase_serve_photon()
     whisper = phase_serve_whisper()
 
     main_case = sa[("fedavg", False)]  # the main path: FedAvg, no DP noise, C = 4
+
+    def async_case(r, err_key="max_abs_err"):  # the kernel at the async path's shape
+        return {"C": r["C"], "max_abs_err": r[err_key], "ms": r["kernel_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"]}
+
     kernels = [{
         "name": "server_apply",
         "route": "cuda",
         "source": "src/repro_torch/csrc/fedcore_server_apply.cu",
         "replaces": "src/repro/kernels/fedcore/kernel.py:141",
         "launches": launches["float32"]["server_apply"],
+        "async_launches": async_launches["float32"]["server_apply"],
         "max_abs_err": main_case["max_abs_err_params"],
         "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1288,15 +1455,18 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes the fused mean + update + norms",
+        "async_case": async_case(sa[("fedavg", False, ASYNC_BUFFER)], "max_abs_err_params"),
     }]
     for name, uplink, line, note in CODEC_KERNELS:
-        r = codecs[name]
+        r = codecs[COHORT][name]
         kernels.append({
             "name": name, "route": "cuda", "source": "src/repro_torch/csrc/fedcore_codecs.cu",
             "replaces": f"src/repro/kernels/fedcore/kernel.py:{line}",
-            "launches": launches[uplink][name], "max_abs_err": r["max_abs_err"],
+            "launches": launches[uplink][name], "async_launches": async_launches[uplink][name],
+            "max_abs_err": r["max_abs_err"],
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "library_note": note,
+            "async_case": async_case(codecs[ASYNC_COHORT][name]),
         })
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",

@@ -1,9 +1,21 @@
-"""The Photon federated pre-training engine: the synchronous path and the
-uplink codecs."""
+"""The Photon federated pre-training engine: the synchronous path, the
+asynchronous buffered aggregator and the uplink codecs."""
 from repro_torch.core.aggregator import (  # noqa: F401
     AGGREGATOR_SCHEMA_VERSION,
+    Aggregator,
+    AsyncBufferAggregator,
+    AsyncFederationDriver,
     SyncAggregator,
     partial_progress_weights,
+)
+from repro_torch.core.async_agg import (  # noqa: F401
+    AsyncAggConfig,
+    admission_record,
+    admit_delta,
+    admit_deltas,
+    flush_buffer,
+    init_async_state,
+    staleness_discount,
 )
 from repro_torch.core.compression import (  # noqa: F401
     UPLINK_SCHEMES,
@@ -31,6 +43,8 @@ from repro_torch.core.inner_opt import InnerOptConfig, cosine_lr  # noqa: F401
 from repro_torch.core.outer_opt import OuterOptConfig  # noqa: F401
 from repro_torch.core.sampler import (  # noqa: F401
     STRAGGLER_PROFILES,
+    AsyncTimeline,
+    DispatchEvent,
     ParticipationConfig,
     ParticipationPlan,
     StragglerProfile,

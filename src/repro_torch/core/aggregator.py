@@ -1,45 +1,66 @@
-"""Synchronous federated aggregation as a state machine — the flat path of
-``repro.core.aggregator.SyncAggregator``.
+"""The server-side aggregation seam: ``repro.core.aggregator``'s
+``SyncAggregator`` (the flat path), ``AsyncBufferAggregator`` and
+``AsyncFederationDriver``.
 
-The aggregator owns the server state and three policies:
+An aggregator owns the server state and three policies:
 
-  (a) admission — the ``ParticipationPlan``'s mask (availability → dropout →
-      straggler cut, or partial progress: a slow client is admitted with the
-      τ_i steps it realized);
+  (a) admission — sync: the ``ParticipationPlan``'s mask (availability →
+      dropout → straggler cut, or partial progress: a slow client is admitted
+      with the τ_i steps it realized); async: the buffer door
+      (``core/async_agg.admit_delta``) and the rule that a population client
+      holds at most one dispatch slot;
   (b) weights — FedAvg data-size weights scaled by τ_i/τ under partial
-      progress (:func:`partial_progress_weights`);
-  (c) the checkpoint schema — the state tree (params/outer/round/rng, plus a
-      sparse ``uplink_residuals`` lane for stateful codecs: every
-      ever-selected client's row, stacked in sorted-id order) and a
-      ``{"schema", "kind", "round"[, "uplink_ids"]}`` manifest, key for key
-      the reference's, so a checkpoint written by either package resumes in
-      the other.
+      progress (:func:`partial_progress_weights`), then, async, the staleness
+      discount at admission;
+  (c) the checkpoint schema — ``checkpoint()`` gives ``(state_tree,
+      manifest)``, key for key the reference's, so a checkpoint written by
+      either package resumes in the other. Sync: params/outer/round/rng plus a
+      sparse ``uplink_residuals`` lane for stateful codecs (every ever-selected
+      client's row, stacked in sorted-id order), and a ``{"schema", "kind",
+      "round"[, "uplink_ids"]}`` manifest. Async: the state with its buffer
+      lanes, the residual rows, the K in-flight params snapshots stacked
+      ``(K, ...)`` and, with a codec, ``uplink_rng``; the manifest carries the
+      dispatch cursor, the simulated clock, the work and byte totals and each
+      in-flight slot's ``(finish, index, version)``.
 
 With an uplink ``codec`` the clients' deltas are encoded before the server
-phase decodes them; a stateful codec's error-feedback residuals live in a
-:class:`~repro_torch.core.federated.SparseResidualStore` that the aggregator
-gathers the cohort's rows from before the round and scatters the updated
-rows back into after it. Cohort tiles, robust rules and the async buffer are
-not ported yet (ROADMAP.md).
+decodes them; a stateful codec's error-feedback residuals live in a
+:class:`~repro_torch.core.federated.SparseResidualStore` keyed by population
+client. Cohort tiles, robust rules, the control loop and tracing are not
+ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
+import heapq
 from dataclasses import replace
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import TensorSpec
+from repro_torch.core.async_agg import (
+    AsyncAggConfig,
+    admit_delta,
+    flush_buffer,
+    init_async_state,
+)
 from repro_torch.core.compression import Codec
 from repro_torch.core.federated import (
     FederatedConfig,
     SparseResidualStore,
     federated_round,
+    fold_in,
     init_federated_state,
+    run_clients,
 )
-from repro_torch.checkpoint.checkpoint import TensorSpec
-from repro_torch.core.sampler import ParticipationConfig, ParticipationPlan, plan_round
-from repro_torch.tree import clone, tree_leaves, tree_map
+from repro_torch.core.sampler import (
+    AsyncTimeline,
+    ParticipationConfig,
+    ParticipationPlan,
+    plan_round,
+)
+from repro_torch.tree import clone, global_norm, tree_leaves, tree_map
 
 #: version tag of the checkpoint schema, shared with the reference
 AGGREGATOR_SCHEMA_VERSION = 1
@@ -55,7 +76,32 @@ def partial_progress_weights(weights, local_steps, tau: int) -> np.ndarray:
     return (w * frac).astype(np.float32)
 
 
-class SyncAggregator:
+class Aggregator:
+    """Base of the seam: the kind, the schema version and the manifest check."""
+
+    kind = "base"
+
+    def checkpoint(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        raise NotImplementedError
+
+    @staticmethod
+    def validate_manifest(manifest: Dict[str, Any], kind: str) -> None:
+        """Refuse a manifest of another kind or schema version: restoring it
+        would replay a different state machine."""
+        if not isinstance(manifest, dict) or manifest.get("kind") != kind:
+            found = manifest.get("kind") if isinstance(manifest, dict) else manifest
+            raise ValueError(f"aggregator manifest kind {found!r} does not match {kind!r}")
+        if int(manifest.get("schema", -1)) != AGGREGATOR_SCHEMA_VERSION:
+            raise ValueError(
+                f"aggregator checkpoint schema {manifest.get('schema')!r} != "
+                f"supported version {AGGREGATOR_SCHEMA_VERSION}"
+            )
+
+    def _manifest_header(self) -> Dict[str, Any]:
+        return {"schema": AGGREGATOR_SCHEMA_VERSION, "kind": self.kind}
+
+
+class SyncAggregator(Aggregator):
     """Synchronous rounds over a fixed-width cohort (see module docstring).
 
     ``fused_server=True`` runs the server phase through
@@ -149,8 +195,7 @@ class SyncAggregator:
     def checkpoint(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """``(state_tree, manifest)``; the tree is a host copy, so the next
         round cannot change what the caller saves."""
-        manifest = {"schema": AGGREGATOR_SCHEMA_VERSION, "kind": self.kind,
-                    "round": int(self.state["round"])}
+        manifest = dict(self._manifest_header(), round=int(self.state["round"]))
         tree = tree_map(_host_copy, self.state)
         if self.residual_store is not None:
             # sparse lane: every ever-selected client's row in sorted-id
@@ -194,17 +239,6 @@ class SyncAggregator:
                 )
         self.state = clone(state)
 
-    @staticmethod
-    def validate_manifest(manifest: Dict[str, Any], kind: str) -> None:
-        if not isinstance(manifest, dict) or manifest.get("kind") != kind:
-            found = manifest.get("kind") if isinstance(manifest, dict) else manifest
-            raise ValueError(f"aggregator manifest kind {found!r} does not match {kind!r}")
-        if int(manifest.get("schema", -1)) != AGGREGATOR_SCHEMA_VERSION:
-            raise ValueError(
-                f"aggregator checkpoint schema {manifest.get('schema')!r} != "
-                f"supported version {AGGREGATOR_SCHEMA_VERSION}"
-            )
-
     @classmethod
     def checkpoint_template(cls, fed: FederatedConfig, pcfg: ParticipationConfig, params_like,
                             codec: Optional[Codec] = None, uplink_ids=None) -> Dict[str, Any]:
@@ -229,3 +263,411 @@ def _host_copy(x):
     if isinstance(x, np.ndarray):
         return x.copy()
     return x
+
+
+def _host_tree(tree):
+    return tree_map(_host_copy, tree)
+
+
+#: the fedcore kernels the async path launches with ``fused_server`` and a
+#: fused codec, by ``--uplink``, each with the counter of
+#: :class:`AsyncBufferAggregator` its launch count equals: ``server_apply``
+#: once per non-empty flush, the encode kernel once per client phase,
+#: ``int8_dequant`` once per admission (decoded at the buffer door)
+ASYNC_KERNEL_COUNTERS = {
+    "float32": {"server_apply": "n_flushes"},
+    "topk": {"server_apply": "n_flushes", "topk_mask_ef": "n_client_phases"},
+    "bf16": {"server_apply": "n_flushes", "sr_bf16": "n_client_phases"},
+    "int8": {"server_apply": "n_flushes", "int8_quant": "n_client_phases",
+             "int8_dequant": "n_admissions"},
+}
+
+
+class AsyncBufferAggregator(Aggregator):
+    """Asynchronous (FedBuff-style) buffered aggregation as a state machine.
+
+      (a) admission — :meth:`admit`, the buffer door of
+          ``core/async_agg.admit_delta``, and :meth:`_dispatch`: a population
+          client holds at most one slot at a time.
+      (b) weights — :meth:`event_weight` credits a completion τ_i/τ under
+          partial progress; the staleness discount is applied at admission.
+      (c) checkpoint — :meth:`checkpoint` (see the module docstring). The
+          timeline is pure in ``(cfg, seed, n)``, so restoring the state, the
+          residual rows, the in-flight snapshots and the manifest replays the
+          run bitwise.
+
+    The in-flight slots hold their params snapshot by reference: nothing in
+    this package writes a params tensor in place (a flush builds new params,
+    the client phase trains a copy), so a snapshot keeps the version it was
+    dispatched with. The event loop is :class:`AsyncFederationDriver`."""
+
+    kind = "async"
+
+    def __init__(
+        self,
+        fed: FederatedConfig,
+        acfg: AsyncAggConfig,
+        pcfg: ParticipationConfig,
+        *,
+        seed: int = 0,
+        params=None,
+        rng: Optional[np.ndarray] = None,
+        state: Optional[Dict[str, Any]] = None,
+        codec: Optional[Codec] = None,
+        dispatch: Optional[Dict[str, Any]] = None,
+        fused_server: bool = False,
+    ):
+        self.fed = fed
+        self.acfg = acfg
+        self.pcfg = pcfg
+        self.codec = codec
+        self.seed = seed
+        self.fused_server = fused_server
+        if pcfg.partial_progress and pcfg.local_steps != fed.local_steps:
+            raise ValueError(
+                "pcfg.local_steps must equal fed.local_steps under partial "
+                f"progress (got {pcfg.local_steps} vs {fed.local_steps})"
+            )
+        self._apply_fn = None
+        if fused_server:
+            from repro_torch.kernels.fedcore import fused_apply_aggregate
+
+            self._apply_fn = fused_apply_aggregate
+        state = init_async_state(fed, acfg, params, rng) if state is None else dict(state)
+        inflight = state.pop("inflight_params", None)
+        uplink_rng = state.pop("uplink_rng", None)
+        restored_res = state.pop("uplink_residuals", None)
+        self.state = state
+        stateful = codec is not None and codec.stateful
+        if restored_res is not None and not stateful:
+            raise ValueError(
+                "restored state carries per-client error-feedback residuals but the "
+                "codec is not stateful — pass the codec the checkpoint was written with"
+            )
+        self.residuals: Optional[SparseResidualStore] = None
+        if stateful:
+            params_like = self.state["params"]
+            if restored_res is None:
+                self.residuals = SparseResidualStore(params_like)
+            else:
+                ids = dispatch.get("uplink_ids") if isinstance(dispatch, dict) else None
+                leading = tree_leaves(restored_res)[0].shape[0]
+                if ids is not None:
+                    self.residuals = SparseResidualStore.from_stacked(params_like, ids,
+                                                                      restored_res)
+                elif leading == pcfg.population:
+                    self.residuals = SparseResidualStore.from_dense(params_like, restored_res)
+                else:
+                    raise ValueError(
+                        f"uplink_residuals lane has leading dim {leading}, which matches "
+                        f"neither the manifest's uplink_ids (absent) nor the dense "
+                        f"(population={pcfg.population}, ...) layout"
+                    )
+        self._bytes_per_upload = (
+            float(codec.nbytes(self.state["params"])) if codec is not None
+            else 4.0 * sum(x.numel() for x in tree_leaves(self.state["params"]))
+        )
+        # the run's codec key: derived once from the rng lane, restored verbatim
+        self._uplink_rng = None
+        if codec is not None:
+            self._uplink_rng = (np.asarray(uplink_rng, np.uint32) if uplink_rng is not None
+                                else fold_in(self.state["rng"], 0x55504C4B))
+        self.uplink_bytes_total = 0.0  # bytes uploaded, refused uploads included
+        self.timeline = AsyncTimeline(pcfg, seed)
+        self.sim_time = 0.0
+        self.work_completed = 0.0  # simulated client time that reached the buffer
+        self.work_wasted = 0.0  # dropout / refused client time
+        self.n_dispatched = 0  # the dispatch cursor
+        self._heap: List[Tuple[float, int, Any, Any, int]] = []
+        self._busy: set = set()  # population ids holding a slot
+        self._losses: List[float] = []  # client train losses since the last flush
+        self._staleness: List[float] = []  # admitted staleness since the last flush
+        self._res_norms: List[float] = []  # error-feedback residual norms since then
+        # this process's counts (not checkpointed): what the kernels' launch
+        # counts are held against on the card
+        self.n_flushes = 0  # non-empty flushes (one server_apply each when fused)
+        self.n_admissions = 0  # uploads that reached the door (one decode each)
+        self.n_client_phases = 0  # client phases run (one codec encode each)
+        if dispatch is not None:
+            self._restore_dispatch(dispatch, inflight)
+        else:
+            for _ in range(pcfg.clients_per_round):
+                self._dispatch()
+
+    @property
+    def device(self) -> torch.device:
+        return tree_leaves(self.state["params"])[0].device
+
+    # --- dispatch --------------------------------------------------------
+    def _dispatch(self) -> None:
+        # skip timeline entries whose client is in flight: at refill at most
+        # K−1 clients are busy and each wave names K distinct clients, so a
+        # free one comes within two waves
+        for _ in range(64 * self.timeline.cfg.clients_per_round):
+            ev = self.timeline.dispatch(self.n_dispatched)
+            self.n_dispatched += 1
+            if ev.client not in self._busy:
+                break
+        else:  # pragma: no cover — unreachable by the argument above
+            raise RuntimeError("async dispatch starved: every client busy")
+        self._busy.add(ev.client)
+        snapshot = self.state["params"] if ev.completes else None
+        version = int(self.state["round"])
+        heapq.heappush(self._heap, (self.sim_time + ev.duration, ev.index, ev, snapshot, version))
+
+    def _pop_completion(self):
+        finish, _, ev, snapshot, version = heapq.heappop(self._heap)
+        self.sim_time = max(self.sim_time, finish)
+        self._busy.discard(ev.client)
+        return ev, snapshot, version
+
+    def dispatch_key(self, index: int) -> np.ndarray:
+        """The codec key of dispatch ``index``: a function of the run's
+        ``uplink_rng`` and the index alone, so a resumed run draws the same
+        noise. This package's rule (:func:`fold_in`), not JAX's bits."""
+        return fold_in(self._uplink_rng, index)
+
+    # --- per-client error-feedback rows ----------------------------------
+    @staticmethod
+    def _res_gather(store: SparseResidualStore, cid):
+        """One client's row as a ``(1, ...)`` tree (zeros before its first upload)."""
+        return tree_map(lambda r: r[None], store.row(int(cid)))
+
+    @staticmethod
+    def _res_scatter(store: SparseResidualStore, cid, new) -> None:
+        """Write a client's updated ``(1, ...)`` row back (a copy)."""
+        store.scatter([int(cid)], new)
+
+    # --- (a)/(b) admission and weights -----------------------------------
+    def event_weight(self, ev) -> float:
+        """A completion's pre-discount weight: the plan's, times τ_i/τ under
+        partial progress."""
+        if self.pcfg.partial_progress and ev.local_steps:
+            return float(ev.weight) * ev.local_steps / self.pcfg.local_steps
+        return float(ev.weight)
+
+    def admit(self, delta, version: int, weight: float) -> Dict[str, Any]:
+        """Admit one upload (a codec payload is decoded at the door) tagged
+        with the version it was computed against; a refusal takes no slot."""
+        self.n_admissions += 1
+        self.state, m = admit_delta(self.fed, self.acfg, self.state, delta, version, weight,
+                                    auto_flush=False, codec=self.codec)
+        return m
+
+    def flush(self) -> Dict[str, Any]:
+        """One outer update from the buffer; bumps the version unless empty."""
+        self.n_flushes += int(self.state["buf_count"]) > 0
+        self.state, m = flush_buffer(self.fed, self.acfg, self.state, apply_fn=self._apply_fn)
+        return m
+
+    def should_flush(self) -> bool:
+        return int(self.state["buf_count"]) >= self.acfg.buffer_size
+
+    def _flush_row(self, flush_metrics) -> Dict[str, Any]:
+        row: Dict[str, Any] = {k: float(v) for k, v in flush_metrics.items()}
+        row["sim_time"] = self.sim_time
+        row["train_loss_mean"] = (
+            float(torch.tensor(self._losses, dtype=torch.float32).mean()) if self._losses
+            else 0.0
+        )
+        row["admitted_staleness"] = list(self._staleness)
+        row["uplink_bytes_total"] = self.uplink_bytes_total
+        if self.residuals is not None:
+            row["uplink_residual_norm"] = (
+                sum(self._res_norms) / len(self._res_norms) if self._res_norms else 0.0
+            )
+        self._losses, self._staleness, self._res_norms = [], [], []
+        return row
+
+    def force_flush(self) -> Optional[Dict[str, Any]]:
+        """A last outer update from a partly filled buffer (end of a run); a
+        row shaped as the driver's flush rows, or None when it is empty."""
+        if int(self.state["buf_count"]) == 0:
+            return None
+        return self._flush_row(self.flush())
+
+    # --- (c) checkpoint ---------------------------------------------------
+    def checkpoint(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """``(state_tree, manifest)``. The tree is a host copy of every lane —
+        the next admission writes the buffer, its weights and the residual
+        rows in place — with the sparse residual lane, ``inflight_params``
+        (the K slots' snapshots stacked in sorted ``(finish, index)`` order)
+        and, with a codec, ``uplink_rng``."""
+        entries = sorted(self._heap, key=lambda e: (e[0], e[1]))
+        tree = _host_tree(self.state)
+        if self.residuals is not None:
+            tree["uplink_residuals"] = _host_tree(self.residuals.stacked())
+        snaps = [snap if snap is not None else self.state["params"]  # filler: never read
+                 for _, _, _, snap, _ in entries]
+        tree["inflight_params"] = tree_map(
+            lambda *xs: torch.stack([x.detach().cpu() for x in xs]), *snaps)
+        if self._uplink_rng is not None:
+            tree["uplink_rng"] = self._uplink_rng.copy()
+        manifest = dict(
+            self._manifest_header(),
+            cursor=int(self.n_dispatched),
+            sim_time=float(self.sim_time),
+            work_completed=float(self.work_completed),
+            work_wasted=float(self.work_wasted),
+            uplink_bytes_total=float(self.uplink_bytes_total),
+            slots=[{"finish": float(finish), "index": int(index), "version": int(ver)}
+                   for finish, index, _, _, ver in entries],
+        )
+        if self.residuals is not None:
+            manifest["uplink_ids"] = self.residuals.ids()
+        return tree, manifest
+
+    def _restore_dispatch(self, manifest: Dict[str, Any], inflight) -> None:
+        self.validate_manifest(manifest, self.kind)
+        slots = manifest["slots"]
+        K = self.pcfg.clients_per_round
+        if len(slots) != K:
+            raise ValueError(
+                f"dispatch manifest has {len(slots)} in-flight slots but this configuration "
+                f"runs {K} — resume with the checkpoint's clients_per_round"
+            )
+        if inflight is None:
+            raise ValueError(
+                "dispatch manifest given but the state tree carries no 'inflight_params' — "
+                "load through the aggregator's checkpoint_template"
+            )
+        self.n_dispatched = int(manifest["cursor"])
+        self.sim_time = float(manifest["sim_time"])
+        self.work_completed = float(manifest["work_completed"])
+        self.work_wasted = float(manifest["work_wasted"])
+        self.uplink_bytes_total = float(manifest["uplink_bytes_total"])
+        for pos, slot in enumerate(slots):
+            ev = self.timeline.dispatch(int(slot["index"]))  # pure in (cfg, seed, index)
+            snapshot = tree_map(lambda x, p=pos: x[p], inflight) if ev.completes else None
+            heapq.heappush(self._heap, (float(slot["finish"]), ev.index, ev, snapshot,
+                                        int(slot["version"])))
+            self._busy.add(ev.client)
+
+    @classmethod
+    def checkpoint_template(cls, fed: FederatedConfig, acfg: AsyncAggConfig,
+                            pcfg: ParticipationConfig, params_like, codec: Optional[Codec] = None,
+                            uplink_ids=None) -> Dict[str, Any]:
+        """A state tree shaped like ``checkpoint()[0]``, the ``like`` argument
+        of ``checkpoint.load_pytree``. The buffer, residual and in-flight lanes
+        are :class:`~repro_torch.checkpoint.TensorSpec`s on the params'
+        device: a template never allocates them. ``uplink_ids`` sizes the
+        residual lane (``None``: the dense ``(P, ...)`` layout)."""
+        state = init_federated_state(replace(fed, keep_inner_state=False), params_like)
+        spec = lambda lead, dtype: (lambda p: TensorSpec(  # noqa: E731
+            (lead,) + tuple(p.shape), dtype or p.dtype, p.device))
+        state["buffer"] = tree_map(spec(acfg.buffer_size, torch.float32), params_like)
+        state["buf_weights"] = torch.zeros((acfg.buffer_size,), dtype=torch.float32)
+        state["buf_staleness"] = torch.zeros((acfg.buffer_size,), dtype=torch.float32)
+        state["buf_count"] = 0
+        if codec is not None and codec.stateful:
+            n = pcfg.population if uplink_ids is None else len(uplink_ids)
+            state["uplink_residuals"] = tree_map(spec(n, torch.float32), params_like)
+        state["inflight_params"] = tree_map(spec(pcfg.clients_per_round, None), params_like)
+        if codec is not None:
+            state["uplink_rng"] = np.zeros((2,), np.uint32)
+        return state
+
+
+class AsyncFederationDriver(AsyncBufferAggregator):
+    """The event loop of the simulated asynchronous federation (Photon §5.3)
+    over :class:`AsyncBufferAggregator`: it owns the data and compute plane
+    only — the client phase (``run_clients`` at C = 1 on each dispatch's
+    params snapshot) and the per-update rows.
+
+    ``make_batches(client_id)`` returns the client's batches, leaves
+    ``(τ, 1, ...)``. Under partial progress the completion's τ_i is the
+    client phase's step budget and its weight is scaled by τ_i/τ."""
+
+    def __init__(
+        self,
+        loss_fn: Callable,
+        fed: FederatedConfig,
+        acfg: AsyncAggConfig,
+        pcfg: ParticipationConfig,
+        make_batches: Callable[[int], Dict[str, torch.Tensor]],
+        *,
+        seed: int = 0,
+        params=None,
+        rng: Optional[np.ndarray] = None,
+        state: Optional[Dict[str, Any]] = None,
+        codec: Optional[Codec] = None,
+        dispatch: Optional[Dict[str, Any]] = None,
+        fused_server: bool = False,
+    ):
+        super().__init__(fed, acfg, pcfg, seed=seed, params=params, rng=rng, state=state,
+                         codec=codec, dispatch=dispatch, fused_server=fused_server)
+        self.make_batches = make_batches
+        self._loss_fn = loss_fn
+        self._fed1 = replace(fed, clients_per_round=1, keep_inner_state=False)
+
+    def step(self) -> Optional[Dict[str, Any]]:
+        """Advance the timeline by one completion and dispatch a replacement;
+        the flush row when this completion's admission filled the buffer."""
+        ev, snapshot, version = self._pop_completion()
+        row = None
+        if ev.completes:
+            # the client consumed its data either way. A refusal for staleness
+            # is certain at pop time (no flush can intervene), so its compute is
+            # skipped — unless an error-feedback codec must advance the residual
+            staleness = int(self.state["round"]) - version
+            rejected = 0 < self.acfg.max_staleness < staleness
+            batches = self.make_batches(ev.client)
+            if rejected and self.residuals is None:
+                self.work_wasted += ev.duration
+            else:
+                st: Dict[str, Any] = {"params": snapshot, "round": version}
+                kw: Dict[str, Any] = {}
+                if self.codec is not None:
+                    st["rng"] = self.dispatch_key(ev.index)
+                if self.pcfg.partial_progress:
+                    kw["tau_steps"] = np.asarray([ev.local_steps or self.fed.local_steps],
+                                                 np.int32)
+                if self.residuals is not None:
+                    kw["residuals"] = self._res_gather(self.residuals, ev.client)
+                self.n_client_phases += 1
+                deltas, aux = run_clients(self._loss_fn, self._fed1, st, batches,
+                                          codec=self.codec, **kw)
+                if self.residuals is not None:
+                    # the residual is the client's, whatever the door decides
+                    self._res_scatter(self.residuals, ev.client, aux["residuals"])
+                    self._res_norms.append(float(global_norm(aux["residuals"])))
+                delta = tree_map(lambda d: d[0], deltas)
+                self.uplink_bytes_total += self._bytes_per_upload
+                m = self.admit(delta, version, self.event_weight(ev))
+                if m["accepted"] > 0:
+                    self.work_completed += ev.duration
+                    self._staleness.append(float(m["staleness"]))
+                    self._losses.append(float(aux["step_metrics"]["loss"][-1]))
+                else:  # refused at the door: kept out of the flush row
+                    self.work_wasted += ev.duration
+            if self.should_flush():
+                row = self._flush_row(self.flush())
+        else:
+            self.work_wasted += ev.duration
+        self._dispatch()
+        return row
+
+    def run_updates(self, n_updates: int,
+                    on_update: Optional[Callable[[int, Dict[str, Any]], None]] = None,
+                    max_events: Optional[int] = None) -> List[Dict[str, Any]]:
+        """Run the event loop until ``n_updates`` outer updates have applied.
+        Raises when the event budget (default 1000 per update) runs out first:
+        a silently short history would corrupt any time-to-loss comparison."""
+        history: List[Dict[str, Any]] = []
+        budget = max_events if max_events is not None else 1000 * max(1, n_updates)
+        while len(history) < n_updates and budget > 0:
+            budget -= 1
+            row = self.step()
+            if row is not None:
+                row["update"] = len(history)
+                history.append(row)
+                if on_update is not None:
+                    on_update(len(history) - 1, row)
+        if len(history) < n_updates:
+            raise RuntimeError(
+                f"async event budget exhausted after {len(history)}/{n_updates} outer "
+                f"updates (the buffer admits too rarely: a mostly offline population, zero "
+                f"weights, or max_staleness refusing everything) — raise max_events or "
+                f"loosen the configuration"
+            )
+        return history

@@ -82,6 +82,13 @@ def split_rng(rng: np.ndarray) -> Tuple[np.ndarray, int]:
     return w[:2].copy(), (int(w[2]) << 32) | int(w[3])
 
 
+def fold_in(rng: np.ndarray, data: int) -> np.ndarray:
+    """A ``(2,)`` uint32 key that depends only on ``rng`` and ``data``: this
+    package's stand-in for ``jax.random.fold_in`` (its bits are not JAX's)."""
+    seq = np.random.SeedSequence([int(x) for x in np.asarray(rng, np.uint32)] + [int(data)])
+    return seq.generate_state(2, np.uint32)
+
+
 def uplink_keys(state: Dict[str, Any], C: int) -> List[np.ndarray]:
     """One ``(2,)`` uint32 key per cohort client for the codec's randomness,
     derived from the rng lane and the round, never consumed: the server's

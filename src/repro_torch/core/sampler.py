@@ -29,13 +29,16 @@ The resulting :class:`ParticipationPlan` feeds ``federated_round`` as a weight
 vector: dropped/straggling clients contribute zero-weight deltas to the aggregate,
 so the effective cohort K_eff ≤ K varies per round.
 
+The async aggregator replays the same plans as a dispatch timeline
+(:class:`AsyncTimeline`): dispatch ``n`` is slot ``n % K`` of wave ``n // K``.
+
 Numpy only, copied from ``repro.core.sampler`` (whose package imports JAX): a
-plan for ``(cfg, seed, round)`` is bitwise the reference's (tested). The async
-dispatch timeline is not ported yet (ROADMAP.md).
+plan for ``(cfg, seed, round)`` and a dispatch for ``(cfg, seed, n)`` are
+bitwise the reference's (tested).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, Optional
 
 import numpy as np
@@ -377,3 +380,77 @@ def plan_round(cfg: ParticipationConfig, seed: int, round_idx: int) -> Participa
         times=times,
         local_steps=local_steps,
     )
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous dispatch schedule (FedBuff-style aggregation, core/async_agg.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DispatchEvent:
+    """One simulated client dispatch resolved by :class:`AsyncTimeline`."""
+
+    index: int  # global dispatch counter n
+    wave: int  # participation wave (= plan_round index) this slot came from
+    slot: int  # slot within the wave's cohort
+    client: int  # population client id
+    weight: float  # pre-discount FedAvg weight (n_k or 1); τ_i/τ scaling is the aggregator's
+    duration: float  # simulated busy time, median-client-round units
+    completes: bool  # False: never produced a delta (unavailable / dropped out)
+    local_steps: int = 0  # realized τ_i under partial progress (0 = full τ)
+
+
+class AsyncTimeline:
+    """Deterministic dispatch schedule for the async aggregator.
+
+    The server keeps ``K = clients_per_round`` client slots busy; dispatch
+    ``n`` is slot ``n % K`` of ``plan_round(cfg, seed, n // K)``, so it is a
+    function of ``(cfg, seed, n)`` alone and a resumed run replays the same
+    timeline. The sync round's deadline is stripped: a slow client finishes
+    late (its uncapped ``plan.times``) instead of being cut. An unavailable
+    slot costs :attr:`CONNECT_COST`, a dropped one half its client's time.
+
+    With ``cfg.partial_progress`` the deadline stays as a per-dispatch budget:
+    the client trains τ_i = min(τ, ⌊τ·speed·deadline⌋) steps and uploads
+    after (τ_i/τ)·time; a client too slow for one step holds its slot until
+    the budget expires and produces nothing.
+    """
+
+    CONNECT_COST = 0.05  # failed-dispatch probe, median-client-round units
+
+    def __init__(self, cfg: ParticipationConfig, seed: int):
+        if cfg.partial_progress:
+            self.cfg = cfg  # plan_round turns the deadline into τ_i budgets
+        else:
+            self.cfg = replace(cfg, straggler=replace(cfg.straggler, deadline=0.0))
+        self.seed = seed
+        self._plan_cache: Dict[int, ParticipationPlan] = {}
+
+    def plan(self, wave: int) -> ParticipationPlan:
+        if wave not in self._plan_cache:
+            if len(self._plan_cache) > 4:  # slots free in order: old waves are dead
+                self._plan_cache.clear()
+            self._plan_cache[wave] = plan_round(self.cfg, self.seed, wave)
+        return self._plan_cache[wave]
+
+    def dispatch(self, n: int) -> DispatchEvent:
+        wave, slot = divmod(n, self.cfg.clients_per_round)
+        plan = self.plan(wave)
+        client = int(plan.selected[slot])
+        if plan.unavailable[slot]:
+            return DispatchEvent(n, wave, slot, client, 0.0, self.CONNECT_COST, False)
+        if plan.dropped[slot]:
+            # fails mid-run: holds the slot for half its time, then frees it empty
+            return DispatchEvent(n, wave, slot, client, 0.0, 0.5 * float(plan.times[slot]),
+                                 False)
+        if plan.local_steps is not None:  # partial progress: the deadline is a budget
+            tau_i = int(plan.local_steps[slot])
+            if tau_i < 1:
+                return DispatchEvent(n, wave, slot, client, 0.0,
+                                     float(self.cfg.straggler.deadline), False, 0)
+            duration = float(plan.times[slot]) * tau_i / self.cfg.local_steps
+            return DispatchEvent(n, wave, slot, client, float(plan.weights[slot]), duration,
+                                 True, tau_i)
+        return DispatchEvent(n, wave, slot, client, float(plan.weights[slot]),
+                             float(plan.times[slot]), True)

@@ -1,13 +1,14 @@
 """Federated training monitors, the ported part of ``repro.metrics.fedmetrics``:
 perplexity, held-out evaluation, the per-round participation,
-partial-progress and uplink-cost rows, and the CSV logger."""
+partial-progress and uplink-cost rows, the async buffer's staleness summary
+and simulated speedup, and the CSV logger."""
 from __future__ import annotations
 
 import csv
 import io
 import math
 import os
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -78,6 +79,46 @@ def uplink_round_metrics(
         "uplink_bytes_round": float(per_client) * float(n_uploads),
         "uplink_compression_ratio": float(f32) / max(float(per_client), 1e-12),
     }
+
+
+# histogram bucket edges of delta staleness (server rounds); the last is open
+_STALENESS_BUCKETS = ((0, 0), (1, 1), (2, 3), (4, 7), (8, None))
+
+
+def staleness_stats(staleness: Iterable[float]) -> Dict[str, float]:
+    """Mean, max and histogram (``staleness_hist_*``: 0, 1, 2–3, 4–7, 8+) of
+    the admitted deltas' ages in one async update."""
+    s = np.asarray(list(staleness), np.float64)
+    out = {
+        "staleness_mean": float(s.mean()) if s.size else 0.0,
+        "staleness_max": float(s.max()) if s.size else 0.0,
+    }
+    for lo, hi in _STALENESS_BUCKETS:
+        if hi is None:
+            out[f"staleness_hist_{lo}p"] = float((s >= lo).sum())
+        elif lo == hi:
+            out[f"staleness_hist_{lo}"] = float(((s >= lo) & (s <= hi)).sum())
+        else:
+            out[f"staleness_hist_{lo}_{hi}"] = float(((s >= lo) & (s <= hi)).sum())
+    return out
+
+
+def staleness_hist_counts(staleness: Iterable[float]) -> np.ndarray:
+    """Per-bucket counts of admitted staleness, in ``staleness_stats``' buckets."""
+    s = np.asarray(list(staleness), np.float64)
+    counts = []
+    for lo, hi in _STALENESS_BUCKETS:
+        if hi is None:
+            counts.append(float((s >= lo).sum()))
+        else:
+            counts.append(float(((s >= lo) & (s <= hi)).sum()))
+    return np.asarray(counts, np.float64)
+
+
+def wallclock_speedup(sync_time: float, async_time: float) -> float:
+    """How much longer the deadline-masking sync schedule takes to aggregate
+    as many deltas as the async one did (> 1.0: async wins), simulated time."""
+    return float(sync_time) / max(float(async_time), 1e-12)
 
 
 @torch.no_grad()

@@ -6,11 +6,12 @@ kernels with nvcc first). ``server_apply``, as in ``chip_smoke.py``: params and
 lanes abs 1e-6·max(1, max|p|), norms rel 1e-5, and two launches bitwise
 equal, for cohorts up to 64 clients (chunks of 32). The four codec kernels:
 bitwise equal to their plain versions, ties, signed zeros, half-quanta and
-non-finite values included. The SSD scan, flash attention and flash decode:
-y within one bf16 ulp of the plain version (f32: 1e-5·max|y|). RMSNorm: bf16
-within one bf16 ulp, f32 within 2e-6·|y|. Flash decode and RMSNorm also give
-the same bits on two launches, and raise rather than fall back when their
-kernel cannot be built.
+non-finite values included; the async driver launches each fedcore kernel
+exactly as often as it counts flushes, client phases and admissions. The SSD
+scan, flash attention and flash decode: y within one bf16 ulp of the plain
+version (f32: 1e-5·max|y|). RMSNorm: bf16 within one bf16 ulp, f32 within
+2e-6·|y|. Flash decode and RMSNorm also give the same bits on two launches,
+and raise rather than fall back when their kernel cannot be built.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import FederatedConfig, OuterOptConfig, init_federated_state  # noqa: E402
+from repro_torch.core.aggregator import ASYNC_KERNEL_COUNTERS  # noqa: E402
 from repro_torch.kernels.fedcore import kernel as K  # noqa: E402
 from repro_torch.kernels.fedcore import fused_apply_aggregate  # noqa: E402
 
@@ -232,6 +234,28 @@ def test_fused_codecs_on_cuda_launch_the_kernels_and_match_the_cpu(scheme):
         assert torch.equal(_bits(a), _bits(b.cpu()))
     for a, b in zip(tree_leaves(codec.decode_cohort(cpu[0])), tree_leaves(dec)):
         assert torch.equal(_bits(a), _bits(b.cpu()))
+
+
+@pytest.mark.parametrize("uplink", sorted(ASYNC_KERNEL_COUNTERS))
+def test_async_driver_on_cuda_launches_what_it_counts(uplink):
+    _need_cuda()
+    from repro_torch.launch import train as T
+
+    args = T.parse_args(["--reduced", "--rounds", "2", "--local-steps", "2", "--clients", "4",
+                         "--population", "8", "--seq-len", "64", "--fused-server",
+                         "--aggregation", "async", "--straggler-profile", "heavy",
+                         "--dropout-rate", "0.1", "--uplink", uplink, "--device", "cuda"])
+    for f in K.KERNELS.values():
+        f.launches = 0
+    out = T.run(args)
+    torch.cuda.synchronize()
+    drv = out["driver"]
+    assert drv.n_flushes == args.rounds and drv.n_admissions >= 2 * args.rounds
+    counters = ASYNC_KERNEL_COUNTERS[uplink]
+    want = {name: getattr(drv, counters[name]) if name in counters else 0 for name in K.KERNELS}
+    assert {n: f.launches for n, f in K.KERNELS.items()} == want
+    assert all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_ppl"])
+               for r in out["history"])
 
 
 def _bits(t):
