@@ -18,12 +18,17 @@ Phases, one JSON line each:
                 FedMom and FedAdam, with and without DP noise, and FedAvg at
                 C = 2 (the async flush's buffer) and C = 40 (two chunks of
                 clients): max errors, run-to-run bitwise norms, kernel /
-                plain / bound times
+                plain / bound times; then FedAvg at C = 2 on poisoned
+                buffers (a NaN lane, a +inf lane and a x64 lane at weight
+                > 0, a NaN lane at weight 0): NaN and ±inf at the plain
+                version's positions, finite values to the tolerance
   topk_mask_ef, sr_bf16, int8_quant, int8_dequant
                 each uplink codec kernel at Np = 74,104,832, C = 4 (a sync
                 cohort) and C = 1 (one async client), bitwise against its
                 plain version: kernel / plain / bound times, GB/s; the top-k
-                phase also times the threshold selection
+                phase also times the threshold selection; int8_dequant also
+                at C = 1 with the scale plane NaN, +inf and x64 (what a
+                Byzantine client's corrupted int8 payload carries), bitwise
   ssd_scan      the SSD chunk-scan kernel against its plain version at
                 mamba2-1.3b's full per-layer prefill shape (B = 4, S = 2048,
                 nh = 64, hd = 64, G = 1, ds = 128, chunk = 64), from a
@@ -83,6 +88,23 @@ Phases, one JSON line each:
                 device's busy share of one more update under torch.profiler,
                 and the wall time of the parts of one more (client phases,
                 admissions, flush, the rest) and of one validation
+  train_tiled   the launcher without --fused-server at full width, --clients 16
+                --population 32 --local-steps 4 --rounds 2: flat, --cohort-tile 4
+                and --cohort-tile 4 --robust-agg trimmed; round seconds, peak
+                device memory, val_ppl, no kernel launched; a one-tile round
+                (K = 4, --cohort-tile 4) bitwise the flat round (loss and
+                params); the tiled fold's sort (tile_fold_update) timed at
+                photon-75m's leaves for the trimmed and median depths
+  train_byzantine
+                --aggregation async --fused-server --straggler-profile heavy
+                --dropout-rate 0.1 --clients 4 --population 8 --local-steps 2
+                --seq-len 64 --rounds 6 --byzantine-fraction 0.25
+                --byzantine-kind nan --rollback --rollback-window 2 at full
+                width, with --uplink float32 and int8: per update rolled_back,
+                pseudo_grad_norm and val_ppl; the rollback at update 3 only;
+                launch counts held to AsyncFederationDriver's counters; finite params
+  centralized   8 centralized_step calls at photon-75m full width on a global
+                batch of 16 x 128 tokens: tokens/s and peak device memory
   serve         full-width mamba2-1.3b (48 layers, random weights from seed 0):
                 ``Model.prefill(use_pallas=True)`` at B = 4, S = 2048 against
                 ``use_pallas=False`` on the card (float32 compute: held to a
@@ -105,8 +127,11 @@ Phases, one JSON line each:
                 the serve numbers and profile as above
   kernels       one line {"kernels": [...]} with every kernel's numbers; the
                 fedcore kernels' entries add the async path's launches
-                (``async_launches``) and the kernel's numbers at the async
-                path's shape (``async_case``: C = 2 or C = 1)
+                (``async_launches``), the Byzantine run's
+                (``byzantine_launches``) and the kernel's numbers at the async
+                path's shape (``async_case``: C = 2 or C = 1);
+                ``server_apply`` and ``int8_dequant`` list their poisoned
+                cases (``poisoned_cases``)
 
 No model path launches flash_decode or rmsnorm (none does in the JAX package
 either): the train and serve phases hold their counts at 0, and their
@@ -183,6 +208,28 @@ WIDE_COHORT = 40  # more clients than one server_apply launch holds (32)
 ASYNC_BUFFER = 2
 ASYNC_COHORT = 1
 TOPK_FRACTION = 0.05  # the launcher's --topk-fraction default
+#: the poisoned server_apply buffers at C = 2: (case, lane 1's content, weights)
+POISON_SERVER_CASES = (
+    ("nan lane, weight > 0", "nan", (1.0, 1.0)),
+    ("+inf lane, weight > 0", "inf", (1.0, 1.0)),
+    ("x64 lane, weight > 0", "x64", (1.0, 1.0)),
+    ("nan lane, weight 0", "nan", (1.0, 0.0)),
+)
+#: the scale plane of one client's int8 payload, as a Byzantine client sends it
+POISON_SCALE_CASES = ("nan", "inf", "x64")
+#: train_tiled: the cohort and its tile (τ cut from 8 to 4: memory does not depend on τ)
+TILED_ARGS = ["--arch", "photon-75m", "--clients", "16", "--population", "32",
+              "--local-steps", "4", "--rounds", "2", "--uplink", "float32"]
+COHORT_TILE = 4
+#: train_byzantine: the CPU test's flags, letter for letter, without --reduced
+BYZANTINE_ARGS = ["--aggregation", "async", "--fused-server", "--straggler-profile", "heavy",
+                  "--dropout-rate", "0.1", "--clients", "4", "--population", "8",
+                  "--local-steps", "2", "--seq-len", "64", "--rounds", "6",
+                  "--byzantine-fraction", "0.25", "--byzantine-kind", "nan", "--rollback",
+                  "--rollback-window", "2"]
+#: the updates the reference CLI rolls back on the CPU (--reduced) with these flags
+BYZANTINE_ROLLED_BACK = [0.0, 0.0, 0.0, 1.0, 0.0, 0.0]
+CENTRAL_STEPS, CENTRAL_BATCH, CENTRAL_SEQ = 8, 16, 128  # K·B rows of the default round
 #: (kernel, the --uplink that runs it, line of the TPU kernel, why no library call)
 CODEC_KERNELS = (
     ("topk_mask_ef", "topk", 236,
@@ -369,7 +416,70 @@ def phase_server_apply() -> dict:
         emit("server_apply", **r)
         results[("fedavg", False, C)] = r
         torch.cuda.empty_cache()
+    results["poisoned"] = [_poisoned_server_apply_case(*case, gen) for case in POISON_SERVER_CASES]
     return results
+
+
+def _poison(x, kind: str):
+    """``x`` as a Byzantine client's corrupted upload carries it."""
+    import torch
+
+    if kind == "x64":
+        return x * 64.0
+    return torch.full_like(x, {"nan": math.nan, "inf": math.inf}[kind])
+
+
+def hold_nonfinite(got, want, atol: float = 0.0, rtol: float = 0.0) -> dict:
+    """NaN and ±inf at the same positions (inf with its sign), the finite
+    values within ``atol + rtol·|want|``; returns the counts and the finite
+    max error."""
+    import torch
+
+    got, want = got.float(), want.float()
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    inf_g, inf_w = torch.isinf(got), torch.isinf(want)
+    assert torch.equal(nan_g, nan_w), ("NaN positions differ", int(nan_g.sum()), int(nan_w.sum()))
+    assert torch.equal(inf_g, inf_w), ("inf positions differ", int(inf_g.sum()), int(inf_w.sum()))
+    assert torch.equal(got[inf_g], want[inf_w]), "inf signs differ"
+    fin = ~(nan_w | inf_w)
+    diff = (got[fin] - want[fin]).abs()
+    assert bool((diff <= atol + rtol * want[fin].abs()).all()), ("finite values", atol, rtol)
+    err = float(diff.max()) if bool(fin.any()) else 0.0
+    return {"nan": int(nan_w.sum()), "inf": int(inf_w.sum()), "finite": int(fin.sum()),
+            "max_abs_err_finite": err}
+
+
+def _poisoned_server_apply_case(case: str, kind: str, weights, gen,
+                                Np: int = NP_PHOTON_75M) -> dict:
+    """FedAvg over a (2, Np) buffer whose lane 1 is poisoned, the kernel
+    against its plain version: the async flush of a buffer that admitted a
+    Byzantine delta (0·NaN = NaN: a zero weight does not hide it)."""
+    import torch
+    from repro_torch.kernels.fedcore import kernel as K
+
+    deltas = torch.randn((ASYNC_BUFFER, Np), generator=gen, device="cuda") * 1e-2
+    deltas[1] = _poison(deltas[1], kind)
+    w = torch.tensor(weights, device="cuda")
+    wn = w / w.sum()
+    params = torch.randn(Np, generator=gen, device="cuda") * 0.02
+    outs = []
+    for fn in (K.server_apply, K.server_apply_plain):
+        p = params.clone()
+        norms = fn(deltas, wn, p, [], opt="fedavg", lr=1.0)
+        torch.cuda.synchronize()
+        outs.append((p, torch.stack([norms[0], norms[1], *norms[2]])))
+    (p_k, n_k), (p_p, n_p) = outs
+    fin = torch.isfinite(p_p)
+    scale = max(1.0, float(p_p[fin].abs().max())) if bool(fin.any()) else 1.0
+    held = hold_nonfinite(p_k, p_p, atol=1e-6 * scale)
+    held_norms = hold_nonfinite(n_k, n_p, rtol=1e-5)
+    r = {"case": case, "C": ASYNC_BUFFER, "Np": Np, "weights": list(weights),
+         "params": held, "norms": held_norms, "norms_kernel": [float(x) for x in n_k],
+         "norms_plain": [float(x) for x in n_p], "max_abs_err": held["max_abs_err_finite"]}
+    emit("server_apply_poisoned", **r)
+    del deltas, params, outs
+    torch.cuda.empty_cache()
+    return r
 
 
 def _bits(t):
@@ -389,7 +499,8 @@ def _codec_case(name: str, kernel, plain, args, nbytes: int, extra=None) -> dict
     got, want = (got if isinstance(got, tuple) else (got,)), \
         (want if isinstance(want, tuple) else (want,))
     bitwise = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
-    max_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    max_err = max(float((a.float() - b.float()).abs().nan_to_num(0.0, 0.0, 0.0).max())
+                  for a, b in zip(got, want))
     assert bitwise, (name, "kernel differs from its plain version", max_err)
     del got, want
     kernel_ms = time_ms(lambda: kernel(*args), reps=20, warmup=3)
@@ -453,6 +564,12 @@ def _codec_cases(C: int, shapes, offsets, gen) -> dict:
     out["int8_dequant"] = _codec_case("int8_dequant", K.int8_dequant, K.int8_dequant_plain,
                                       (q, scales, offsets), 5 * C * Np,
                                       {"leaves": len(shapes)})
+    if C == ASYNC_COHORT:  # one client's payload with its scale plane corrupted
+        out["int8_dequant_poisoned"] = [
+            _codec_case("int8_dequant_poisoned", K.int8_dequant, K.int8_dequant_plain,
+                        (q, _poison(scales, kind).contiguous(), offsets), 5 * C * Np,
+                        {"case": f"scale plane {kind}", "leaves": len(shapes)})
+            for kind in POISON_SCALE_CASES]
     return out
 
 
@@ -623,6 +740,208 @@ def phase_train_async(uplink: str) -> dict:
     del out, drv
     torch.cuda.empty_cache()
     return launches
+
+
+def _run_counted(argv):
+    """``repro_torch.launch.train`` with ``argv`` on the card, the kernel
+    counts zeroed just before and read just after; ``(out, launches,
+    seconds, peak bytes)``."""
+    import torch
+    from repro_torch.launch import train as T
+
+    args = T.parse_args(argv + ["--device", "cuda"])
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = T.run(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, read_launches(), seconds, torch.cuda.max_memory_allocated()
+
+
+def phase_train_tiled() -> dict:
+    """photon-75m's sync round at K = 16, flat and in tiles of 4 (and the
+    trimmed fold in tiles of 4): none of these paths launches a kernel; the
+    tiled peak must follow the tile, not K. Then a one-tile round is held
+    bitwise to the flat one, and the fold's sort is timed."""
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    runs = {}
+    tile = ["--cohort-tile", str(COHORT_TILE)]
+    for name, extra in (("flat", []), ("tiled", tile),
+                        ("tiled_trimmed", tile + ["--robust-agg", "trimmed"])):
+        out, launches, seconds, peak = _run_counted(TILED_ARGS + extra)
+        hist = out["history"]
+        for row in hist:
+            emit("train_tiled", run=name, round=row["round"], seconds=row["seconds"],
+                 loss=row["train_loss"], val_ppl=row["val_ppl"],
+                 pseudo_grad_norm=row["pseudo_grad_norm"])
+        runs[name] = {"round_seconds": [row["seconds"] for row in hist], "peak_mem_GB": peak / 1e9,
+                      "val_ppl": hist[-1]["val_ppl"], "total_seconds": seconds,
+                      "launches": launches}
+        emit("train_tiled", run=name, **runs[name])
+        assert all(v == 0 for v in launches.values()), (name, launches)
+        assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(out["state"]["params"]))
+        assert all(math.isfinite(r["train_loss"]) and math.isfinite(r["val_ppl"]) for r in hist)
+        del out
+    # the one-tile identity on the card: K = 4 flat, K = 4 in one tile, and
+    # flat again (the card's own run-to-run determinism)
+    one = ["--arch", "photon-75m", "--clients", "4", "--population", "8", "--local-steps", "4",
+           "--rounds", "1", "--uplink", "float32"]
+    ident = {}
+    for name, extra in (("flat", []), ("one_tile", ["--cohort-tile", "4"]), ("flat_again", [])):
+        out, launches, _, peak = _run_counted(one + extra)
+        ident[name] = (out["history"][0]["train_loss"], tree_leaves(out["state"]["params"]), peak)
+        assert all(v == 0 for v in launches.values()), (name, launches)
+        del out
+    checksum = {k: float(sum(x.double().sum() for x in v[1])) for k, v in ident.items()}
+    same = {k: ident[k][0] == ident["flat"][0]
+            and all(torch.equal(a, b) for a, b in zip(ident[k][1], ident["flat"][1]))
+            for k in ("one_tile", "flat_again")}
+    r = {"loss": {k: v[0] for k, v in ident.items()}, "params_checksum": checksum,
+         "bitwise_vs_flat": same, "peak_mem_GB_K4": ident["flat"][2] / 1e9}
+    emit("train_tiled", check="one tile == flat, K = 4", **r)
+    assert same["flat_again"], "two flat rounds on the card differ"
+    assert same["one_tile"], "the one-tile round differs from the flat round"
+    del ident
+    # the tiled peak follows the tile: the K = 4 round's peak plus the Σ w·Δ
+    # row (and, trimmed, the fold's buffers and its sort), far under flat K = 16
+    k4 = r["peak_mem_GB_K4"]
+    assert runs["tiled"]["peak_mem_GB"] < k4 + 1.0, (runs["tiled"], k4)
+    assert runs["tiled_trimmed"]["peak_mem_GB"] < runs["flat"]["peak_mem_GB"], runs
+    runs["one_tile"] = r
+    runs["fold_sort"] = _fold_sort_times()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _fold_sort_times() -> dict:
+    """Device ms of one ``tile_fold_update`` (the sort along the lane axis
+    of the (k + C_tile, N) concatenation, per leaf) at photon-75m's leaves,
+    K = 16 in tiles of 4: the trimmed depth k = 1 and the median's k = 9."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.robust import tile_fold_init, tile_fold_size, tile_fold_update
+    from repro_torch.models import build_model
+
+    from repro_torch.tree import tree_leaves, tree_map
+
+    params = build_model(get_config("photon-75m")).init(0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    deltas = tree_map(lambda x: torch.randn((COHORT_TILE,) + tuple(x.shape), generator=gen,
+                                            device="cuda") * 1e-3, params)
+    admit = torch.ones(COHORT_TILE, dtype=torch.bool, device="cuda")
+    n = sum(x.numel() for x in tree_leaves(params))
+    out = {}
+    for rule in ("trimmed", "median"):
+        k = tile_fold_size(rule, 0.1, 16)
+        fold = tile_fold_init(params, k)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = time_ms(lambda: tile_fold_update(fold, deltas, admit), reps=3, warmup=1)
+        rows = k + COHORT_TILE
+        out[rule] = {"k": k, "rows": rows, "N": n, "ms": ms,
+                     "transient_GB": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                     # the fold reads its two (k, N) buffers and the tile once and
+                     # writes the buffers and the total: a bytes bound for the sort
+                     "bytes_bound_ms": 4 * n * (2 * k + COHORT_TILE + 2 * k + 2)
+                     / HBM_BYTES_PER_S * 1e3}
+        emit("train_tiled", fold_sort=rule, **out[rule])
+        del fold
+    del params, deltas
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_byzantine(uplink: str) -> dict:
+    """The async Byzantine run with --rollback at full width: the updates
+    that roll back are the reference CLI's (update 3 only), each fedcore
+    kernel launches as often as AsyncFederationDriver counts, the final params are
+    finite."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core.aggregator import ASYNC_KERNEL_COUNTERS
+    from repro_torch.tree import tree_leaves
+
+    ck = tempfile.mkdtemp(prefix="chip_smoke_byz_")
+    try:
+        out, launches, seconds, peak = _run_counted(BYZANTINE_ARGS + ["--uplink", uplink,
+                                                                      "--ckpt-dir", ck])
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    drv = out["driver"]
+    counts = {"n_flushes": drv.n_flushes, "n_client_phases": drv.n_client_phases,
+              "n_admissions": drv.n_admissions}
+    for row in out["history"]:
+        emit("train_byzantine", uplink=uplink, update=row["update"],
+             rolled_back=row["rolled_back"], pseudo_grad_norm=row["pseudo_grad_norm"],
+             nonfinite_deltas=row["nonfinite_deltas"], val_ppl=row["val_ppl"],
+             seconds=row["seconds"])
+    rolled = [row["rolled_back"] for row in out["history"]]
+    leaves = tree_leaves(out["state"]["params"])
+    finite = all(bool(torch.isfinite(x).all()) for x in leaves)
+    emit("train_byzantine", uplink=uplink, launches=launches, **counts, rolled_back=rolled,
+         robust=drv.robust_state.state_dict(), total_seconds=seconds, peak_mem_GB=peak / 1e9,
+         final_params_finite=finite)
+    assert rolled == BYZANTINE_ROLLED_BACK, (uplink, rolled)
+    assert finite, "non-finite params after the rollback"
+    counters = ASYNC_KERNEL_COUNTERS[uplink]
+    want = {name: counts[counters[name]] if name in counters else 0 for name in launches}
+    assert launches == want, (uplink, launches, want)
+    del out, drv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_centralized() -> dict:
+    """The paper's baseline on this card: ``centralized_step`` at photon-75m's
+    full width on a global batch of K·B = 16 rows of 128 tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import InnerOptConfig, centralized_step, init_centralized_state
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("photon-75m")
+    model = build_model(cfg)
+    inner = InnerOptConfig(warmup_steps=1, total_steps=CENTRAL_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    state = init_centralized_state(inner, model.init(0, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    seconds, losses = [], []
+    for _ in range(CENTRAL_STEPS):
+        toks = torch.randint(0, cfg.vocab_size, (CENTRAL_BATCH, CENTRAL_SEQ), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = centralized_step(model.loss, inner, state, {"tokens": toks})
+        losses.append(float(metrics["loss"]))  # waits for the device
+        seconds.append(time.perf_counter() - t0)
+    launches = read_launches()
+    tokens = CENTRAL_BATCH * CENTRAL_SEQ
+    r = {"steps": CENTRAL_STEPS, "batch": CENTRAL_BATCH, "seq_len": CENTRAL_SEQ,
+         "step_seconds": seconds, "loss": losses,
+         "tokens_per_s": tokens * (CENTRAL_STEPS - 1) / sum(seconds[1:]),
+         "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9, "launches": launches}
+    emit("centralized", **r)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(state["params"]))
+    assert state["step"] == CENTRAL_STEPS and all(v == 0 for v in launches.values())
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
 
 
 def async_update_parts(drv, out, args) -> dict:
@@ -1431,6 +1750,9 @@ def main() -> int:
     phase_serve_check()
     launches = {uplink: phase_train(uplink) for uplink in TRAIN_KERNELS}
     async_launches = {uplink: phase_train_async(uplink) for uplink in ASYNC_KERNEL_COUNTERS}
+    phase_train_tiled()
+    byz_launches = {uplink: phase_train_byzantine(uplink) for uplink in ("float32", "int8")}
+    phase_centralized()
     mamba2 = phase_serve_mamba2()
     phase_serve_photon()
     whisper = phase_serve_whisper()
@@ -1456,6 +1778,11 @@ def main() -> int:
         "library_ms": None,
         "library_note": "no single PyTorch call computes the fused mean + update + norms",
         "async_case": async_case(sa[("fedavg", False, ASYNC_BUFFER)], "max_abs_err_params"),
+        "byzantine_launches": byz_launches["float32"]["server_apply"],
+        "byzantine_int8_launches": byz_launches["int8"]["server_apply"],
+        "poisoned_cases": [{k: r[k] for k in ("case", "C", "weights", "max_abs_err")}
+                           | {"nan": r["params"]["nan"], "inf": r["params"]["inf"]}
+                           for r in sa["poisoned"]],
     }]
     for name, uplink, line, note in CODEC_KERNELS:
         r = codecs[COHORT][name]
@@ -1467,7 +1794,13 @@ def main() -> int:
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "library_note": note,
             "async_case": async_case(codecs[ASYNC_COHORT][name]),
+            "byzantine_launches": byz_launches["int8"][name],
         })
+        if name == "int8_dequant":
+            kernels[-1]["poisoned_cases"] = [
+                {"case": r["case"], "C": r["C"], "bitwise": r["bitwise"], "ms": r["kernel_ms"],
+                 "plain_ms": r["plain_ms"]}
+                for r in codecs[ASYNC_COHORT]["int8_dequant_poisoned"]]
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:88",

@@ -26,12 +26,20 @@ An aggregator owns the server state and three policies:
 With an uplink ``codec`` the clients' deltas are encoded before the server
 decodes them; a stateful codec's error-feedback residuals live in a
 :class:`~repro_torch.core.federated.SparseResidualStore` keyed by population
-client. Cohort tiles, robust rules, the control loop and tracing are not
-ported yet (ROADMAP.md).
+client.
+
+``SyncAggregator(cohort_tile=...)`` streams the cohort through the client
+phase in tiles (Σ w·Δ per tile, one divide at the end), so the (C, N) delta
+buffer is bounded by the tile. ``robust=`` (``core/robust``) installs a
+robust rule or the delta screen at the server phase's ``apply_fn`` seam (a
+per-tile order-statistic fold under tiling), keeps the quarantine table and
+the divergence guard's state in ``manifest["robust"]``, and screens the async
+door. The control loop and tracing are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
 import heapq
+import math
 from dataclasses import replace
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -49,10 +57,27 @@ from repro_torch.core.compression import Codec
 from repro_torch.core.federated import (
     FederatedConfig,
     SparseResidualStore,
+    _finish_aggregate,
+    _weigh_clients,
+    apply_aggregate_partial,
+    combine_tile_metrics,
     federated_round,
     fold_in,
     init_federated_state,
+    run_client_tile,
     run_clients,
+    tile_rng,
+)
+from repro_torch.core.robust import (
+    RobustAggConfig,
+    RobustState,
+    make_robust_apply_fn,
+    normclip_scale,
+    sanitize_deltas,
+    tile_fold_finish,
+    tile_fold_init,
+    tile_fold_size,
+    tile_fold_update,
 )
 from repro_torch.core.sampler import (
     AsyncTimeline,
@@ -106,7 +131,9 @@ class SyncAggregator(Aggregator):
 
     ``fused_server=True`` runs the server phase through
     ``kernels.fedcore.fused_apply_aggregate``: on the card, the CUDA
-    ``server_apply`` kernel."""
+    ``server_apply`` kernel. ``cohort_tile`` streams the cohort ``C_tile``
+    clients at a time; one tile (``C_tile == C``) is bitwise the flat round.
+    ``robust`` is a :class:`~repro_torch.core.robust.RobustAggConfig`."""
 
     kind = "sync"
 
@@ -123,7 +150,32 @@ class SyncAggregator(Aggregator):
         state: Optional[Dict[str, Any]] = None,
         fused_server: bool = False,
         codec: Optional[Codec] = None,
+        cohort_tile: Optional[int] = None,
+        robust: Optional[RobustAggConfig] = None,
     ):
+        if robust is not None and robust.active and fused_server:
+            raise ValueError(
+                "--fused-server is a plain weighted-mean flat-buffer pass and "
+                "cannot host a robust rule or the delta screen — drop one of "
+                "--fused-server / --robust-agg / --screen"
+            )
+        if robust is not None and cohort_tile is not None:
+            if robust.screen:
+                raise ValueError(
+                    "the median/MAD delta screen needs the whole cohort's "
+                    "norms in one pass and cannot compose with --cohort-tile "
+                    "(tiles fold before the cohort median exists) — drop "
+                    "--screen or --cohort-tile"
+                )
+            if robust.rule == "normclip" and robust.clip_norm <= 0.0:
+                raise ValueError(
+                    "adaptive norm-clipping (clip_norm=0) needs the cohort "
+                    "median norm before any tile folds — use an absolute "
+                    "--clip-norm with --cohort-tile"
+                )
+        self.robust = robust
+        self.robust_state = RobustState(robust) if robust is not None and robust.stateful \
+            else None
         if partial_progress or pcfg.partial_progress:
             # the aggregator owns the policy: it teaches the participation
             # layer the round's τ so plan_round can derive per-client τ_i
@@ -133,6 +185,23 @@ class SyncAggregator(Aggregator):
         self.seed = seed
         self.partial_progress = pcfg.partial_progress
         self.codec = codec
+        if cohort_tile is not None:
+            cohort_tile = int(cohort_tile)
+            if cohort_tile < 1:
+                raise ValueError(f"cohort_tile must be >= 1, got {cohort_tile}")
+            if fed.keep_inner_state:
+                raise ValueError(
+                    "cohort tiling cannot keep per-client inner state across "
+                    "rounds (the (K, ...)-shaped inner store is the memory "
+                    "term tiling removes) — drop --keep-opt or --cohort-tile"
+                )
+            if fused_server:
+                raise ValueError(
+                    "--fused-server consumes the full (C, N) delta buffer with "
+                    "pre-normalized weights, not the tiled partial-sum layout "
+                    "— drop one of --fused-server / --cohort-tile"
+                )
+        self.cohort_tile = cohort_tile
         self.residual_store = SparseResidualStore.create(
             codec, params if params is not None else (state or {}).get("params")
         )
@@ -142,6 +211,9 @@ class SyncAggregator(Aggregator):
             from repro_torch.kernels.fedcore import fused_apply_aggregate
 
             self._apply_fn = fused_apply_aggregate
+        elif robust is not None and robust.active and cohort_tile is None:
+            # the tiled path composes the robust rule as a per-tile fold instead
+            self._apply_fn = make_robust_apply_fn(fed, robust)
         if state is None:
             # own a copy: rounds replace the state, and the caller keeps its params
             self.state = init_federated_state(fed, clone(params), rng)
@@ -169,23 +241,136 @@ class SyncAggregator(Aggregator):
                   ) -> Dict[str, torch.Tensor]:
         """One round under this aggregator's policies; replaces the owned state.
 
-        The server phase builds the new state from fresh buffers (the fused
-        kernel writes its results in place over the packed copies it reads)
-        and the old state is dropped here — the stand-in for the reference's
-        buffer donation: no params-sized output is allocated twice."""
-        device = self.device
-        w = torch.from_numpy(self.round_weights(plan)).to(device)
+        Quarantined clients weigh 0 this round (nothing is touched while the
+        table is empty). With the screen, the flagged clients are counted and
+        quarantined, and ``screen_mask`` leaves the metrics."""
+        rs = self.robust_state
+        rid = int(self.state["round"])
+        w = self.round_weights(plan)
+        if rs is not None and rs.quarantine:
+            q = np.asarray([rs.is_quarantined(int(c), rid) for c in np.asarray(plan.selected)])
+            if q.any():
+                w = np.where(q, np.float32(0.0), w).astype(np.float32)
+        if self.cohort_tile is not None:
+            metrics = self._run_round_tiled(batches, plan, w)
+        else:
+            metrics = self._run_round_flat(batches, plan, w)
+        metrics = dict(metrics)
+        screen_mask = metrics.pop("screen_mask", None)
+        if screen_mask is not None and rs is not None:
+            flagged = np.nonzero(screen_mask.cpu().numpy() > 0)[0]
+            if len(flagged):
+                sel = np.asarray(plan.selected)
+                cids = [int(sel[i]) for i in flagged]
+                rs.note_screen_rejects(len(cids))
+                rs.add_quarantine(cids, rid)
+        return metrics
+
+    def _run_round_flat(self, batches, plan: ParticipationPlan, w: np.ndarray
+                        ) -> Dict[str, torch.Tensor]:
+        """The cohort-wide round. The server phase builds the new state from
+        fresh buffers (the fused kernel writes its results in place over the
+        packed copies it reads) and the old state is dropped here — the
+        stand-in for the reference's buffer donation."""
         tau = self.tau_steps(plan) if self.partial_progress else None
         stateful = self.residual_store is not None
         residuals = self.residual_store.gather(plan.selected) if stateful else None
         self.state, metrics = federated_round(
-            self._loss_fn, self.fed, self.state, batches, client_weights=w,
-            tau_steps=tau, apply_fn=self._apply_fn, codec=self.codec, residuals=residuals,
+            self._loss_fn, self.fed, self.state, batches,
+            client_weights=torch.from_numpy(w).to(self.device), tau_steps=tau,
+            apply_fn=self._apply_fn, codec=self.codec, residuals=residuals,
         )
         if stateful:
             # the cohort's updated rows belong in the population store
             self.residual_store.scatter(plan.selected, self.state.pop("uplink_residuals"))
         return metrics
+
+    def _run_round_tiled(self, batches, plan: ParticipationPlan, w: np.ndarray
+                         ) -> Dict[str, torch.Tensor]:
+        """The streamed round: ⌈C / C_tile⌉ tiles through
+        :func:`run_client_tile`, Σ w·Δ summed across tiles and divided once by
+        :func:`apply_aggregate_partial`. The last tile pads to the tile width
+        with zero-weight slots (a zero batch, a zero residual row, the full
+        τ) that never touch the residual store. Each tile's (C_tile, N)
+        deltas are freed before the next tile runs. A trimmed or median rule
+        folds each tile into order-statistic buffers instead of the sum;
+        normclip (absolute threshold) clips each client inside its tile."""
+        C, ct = self.fed.clients_per_round, self.cohort_tile
+        n_tiles = -(-C // ct)
+        device = self.device
+        stateful = self.residual_store is not None
+        tau_np = (np.asarray(self.tau_steps(plan), np.int32) if self.partial_progress
+                  else None)
+        w_full = np.zeros(n_tiles * ct, np.float32)
+        w_full[:C] = w
+        fed_tile = replace(self.fed, clients_per_round=ct)
+        core = {"params": self.state["params"], "round": self.state["round"]}
+        base_rng = self.state["rng"]
+        robust = self.robust
+        rule = robust.rule if robust is not None and robust.active else None
+        fold = None
+        if rule in ("trimmed", "median"):
+            k = tile_fold_size(rule, robust.trim_fraction, n_tiles * ct)
+            fold = tile_fold_init(self.state["params"], k)
+        delta_sum, delta_norms, tile_outs = None, [], []
+        sel = np.asarray(plan.selected)
+        for t in range(n_tiles):
+            lo, hi = t * ct, min((t + 1) * ct, C)
+            n_real = hi - lo
+
+            def pad(x, dim=0):
+                if n_real == ct:
+                    return x
+                shape = list(x.shape)
+                shape[dim] = ct - n_real
+                return torch.cat([x, torch.zeros(shape, dtype=x.dtype, device=x.device)],
+                                 dim=dim)
+
+            b_t = {k: pad(v[:, lo:hi], dim=1) for k, v in batches.items()}
+            w_t = torch.from_numpy(w_full[t * ct:(t + 1) * ct].copy()).to(device)
+            res_t = (tree_map(pad, self.residual_store.gather(sel[lo:hi])) if stateful
+                     else None)
+            tau_t = None
+            if tau_np is not None:
+                # pad slots take the full τ, as masked slots do (tau_steps())
+                tau_t = np.concatenate([tau_np[lo:hi], np.full(ct - n_real, self.fed.local_steps,
+                                                               np.int32)])
+            s_t = dict(core, rng=tile_rng(base_rng, t))
+            out = run_client_tile(self._loss_fn, fed_tile, s_t, b_t, w_t, codec=self.codec,
+                                  residuals=res_t, tau_steps=tau_t,
+                                  return_deltas=rule is not None)
+            del b_t, res_t
+            if stateful:
+                rows = out.pop("residuals")
+                self.residual_store.scatter(sel[lo:hi], tree_map(lambda x: x[:n_real], rows))
+                del rows
+            ds, dn_t = out.pop("delta_sum"), out.pop("delta_norms")
+            with torch.no_grad():
+                if fold is not None:
+                    finite = torch.isfinite(dn_t)
+                    deltas = sanitize_deltas(out.pop("deltas"), finite)
+                    fold = tile_fold_update(fold, deltas, (w_t > 0) & finite)
+                    del deltas
+                else:
+                    if rule == "normclip":
+                        ds = _clip_sum(out.pop("deltas"), dn_t, w_t, robust.clip_norm)
+                    if delta_sum is None:
+                        delta_sum = ds
+                    else:
+                        tree_map(lambda a, b: a.add_(b), delta_sum, ds)
+            del ds
+            delta_norms.append(dn_t)
+            tile_outs.append(out)
+        dn = torch.cat(delta_norms)
+        w_all = torch.from_numpy(w_full).to(device)
+        if fold is not None:
+            pg = tile_fold_finish(fold, rule, robust.trim_fraction)
+            del fold
+            self.state, agg_metrics = _finish_aggregate(self.fed, self.state, pg, dn, w_all)
+        else:
+            self.state, agg_metrics = apply_aggregate_partial(self.fed, self.state, delta_sum,
+                                                              w_all, dn)
+        return dict(combine_tile_metrics(tile_outs), **agg_metrics)
 
     @property
     def device(self) -> torch.device:
@@ -203,7 +388,16 @@ class SyncAggregator(Aggregator):
             # sized without reading the npz
             manifest["uplink_ids"] = self.residual_store.ids()
             tree["uplink_residuals"] = tree_map(_host_copy, self.residual_store.stacked())
+        if self.robust_state is not None:
+            # absent when the defense is off: the undefended manifest is unchanged
+            manifest["robust"] = self.robust_state.state_dict()
         return tree, manifest
+
+    def adopt_model(self, tree: Dict[str, Any]) -> None:
+        """Adopt a rolled-back ``{params, outer}`` subset (divergence
+        rollback): the model and outer lanes rewind while ``round`` and
+        ``rng`` keep advancing, so a resumed run replays the same rollback."""
+        self.state = dict(self.state, params=clone(tree["params"]), outer=clone(tree["outer"]))
 
     def restore(self, state: Dict[str, Any], manifest: Optional[Dict[str, Any]] = None) -> None:
         """Adopt a restored state tree (as :func:`checkpoint.load_pytree`
@@ -237,6 +431,9 @@ class SyncAggregator(Aggregator):
                     f"the manifest's uplink_ids (absent) nor the dense "
                     f"(population={self.pcfg.population}, ...) layout"
                 )
+        if self.robust_state is not None and isinstance(manifest, dict) and "robust" in manifest:
+            # a manifest without the key restores a clean slate
+            self.robust_state.load_state_dict(manifest["robust"])
         self.state = clone(state)
 
     @classmethod
@@ -255,6 +452,17 @@ class SyncAggregator(Aggregator):
                 params_like,
             )
         return state
+
+
+def _clip_sum(deltas, norms: torch.Tensor, w: torch.Tensor, clip_norm: float):
+    """A tile's Σ w_k s_k Δ_k with each client clipped at the absolute
+    ``clip_norm`` (normclip under tiling); non-finite lanes are zeroed first."""
+    finite = torch.isfinite(norms)
+    scale = normclip_scale(norms, (w > 0) & finite,
+                           torch.tensor(float(clip_norm), dtype=torch.float32,
+                                        device=norms.device))
+    clean = sanitize_deltas(deltas, finite)
+    return tree_map(lambda x: torch.sum(_weigh_clients(x, w.float() * scale), dim=0), clean)
 
 
 def _host_copy(x):
@@ -299,7 +507,13 @@ class AsyncBufferAggregator(Aggregator):
     The in-flight slots hold their params snapshot by reference: nothing in
     this package writes a params tensor in place (a flush builds new params,
     the client phase trains a copy), so a snapshot keeps the version it was
-    dispatched with. The event loop is :class:`AsyncFederationDriver`."""
+    dispatched with. The event loop is :class:`AsyncFederationDriver`.
+
+    With ``robust``: a robust rule guards each flush (its screen is off there:
+    the screen runs at the door, :meth:`admit`, against
+    :meth:`RobustState.norm_bound`), and ``corrupt_fn`` (the attack
+    simulator, ``core/robust.make_byzantine_fn``) corrupts an upload between
+    the client phase and the door."""
 
     kind = "async"
 
@@ -316,6 +530,7 @@ class AsyncBufferAggregator(Aggregator):
         codec: Optional[Codec] = None,
         dispatch: Optional[Dict[str, Any]] = None,
         fused_server: bool = False,
+        robust: Optional[RobustAggConfig] = None,
     ):
         self.fed = fed
         self.acfg = acfg
@@ -323,6 +538,19 @@ class AsyncBufferAggregator(Aggregator):
         self.codec = codec
         self.seed = seed
         self.fused_server = fused_server
+        if robust is not None and robust.active and fused_server:
+            raise ValueError(
+                "--fused-server is a plain weighted-mean flat-buffer pass and "
+                "cannot host a robust rule or the delta screen — drop one of "
+                "--fused-server / --robust-agg / --screen"
+            )
+        self.robust = robust
+        self.robust_state = RobustState(robust) if robust is not None and robust.stateful \
+            else None
+        self._screen = robust is not None and robust.screen
+        #: an optional ``(client_id, dispatch_index, upload) -> upload`` hook run
+        #: before the door: the Byzantine-client simulator; None on honest runs
+        self.corrupt_fn = None
         if pcfg.partial_progress and pcfg.local_steps != fed.local_steps:
             raise ValueError(
                 "pcfg.local_steps must equal fed.local_steps under partial "
@@ -333,6 +561,10 @@ class AsyncBufferAggregator(Aggregator):
             from repro_torch.kernels.fedcore import fused_apply_aggregate
 
             self._apply_fn = fused_apply_aggregate
+        elif robust is not None and robust.rule != "none":
+            # the buffer holds admitted deltas only, but may still hold poison
+            # from before the screen's warmup: the rule's sanitize absorbs it
+            self._apply_fn = make_robust_apply_fn(fed, replace(robust, screen=False))
         state = init_async_state(fed, acfg, params, rng) if state is None else dict(state)
         inflight = state.pop("inflight_params", None)
         uplink_rng = state.pop("uplink_rng", None)
@@ -389,6 +621,9 @@ class AsyncBufferAggregator(Aggregator):
         self.n_admissions = 0  # uploads that reached the door (one decode each)
         self.n_client_phases = 0  # client phases run (one codec encode each)
         if dispatch is not None:
+            if self.robust_state is not None and "robust" in dispatch:
+                # a manifest without the key restores a clean slate
+                self.robust_state.load_state_dict(dispatch["robust"])
             self._restore_dispatch(dispatch, inflight)
         else:
             for _ in range(pcfg.clients_per_round):
@@ -448,11 +683,36 @@ class AsyncBufferAggregator(Aggregator):
 
     def admit(self, delta, version: int, weight: float) -> Dict[str, Any]:
         """Admit one upload (a codec payload is decoded at the door) tagged
-        with the version it was computed against; a refusal takes no slot."""
+        with the version it was computed against; a refusal takes no slot.
+        With the screen, the door also refuses a non-finite delta and one over
+        the adaptive norm bound."""
         self.n_admissions += 1
+        kw: Dict[str, Any] = {}
+        if self._screen:
+            kw = dict(screen=True, norm_bound=(self.robust_state.norm_bound()
+                                               if self.robust_state is not None
+                                               else float("inf")))
         self.state, m = admit_delta(self.fed, self.acfg, self.state, delta, version, weight,
-                                    auto_flush=False, codec=self.codec)
+                                    auto_flush=False, codec=self.codec, **kw)
         return m
+
+    def _note_admission(self, ev, m) -> None:
+        """The defense's bookkeeping of one admission: every finite norm seen
+        at the door feeds the adaptive bound; a screened refusal is counted,
+        and only a non-finite one quarantines its sender (a norm-bound miss
+        is weak evidence, and a round-indexed quarantine of honest clients
+        would stall the run)."""
+        rs = self.robust_state
+        if rs is None or "delta_norm" not in m:
+            return
+        norm = float(m["delta_norm"])
+        finite = math.isfinite(norm)
+        if finite:
+            rs.observe_norm(norm)
+        if float(m["accepted"]) <= 0 and float(m.get("screened", 0.0)) > 0:
+            rs.note_screen_rejects()
+            if not finite:
+                rs.add_quarantine([int(ev.client)], int(self.state["round"]))
 
     def flush(self) -> Dict[str, Any]:
         """One outer update from the buffer; bumps the version unless empty."""
@@ -515,7 +775,25 @@ class AsyncBufferAggregator(Aggregator):
         )
         if self.residuals is not None:
             manifest["uplink_ids"] = self.residuals.ids()
+        if self.robust_state is not None:
+            manifest["robust"] = self.robust_state.state_dict()
         return tree, manifest
+
+    def adopt_model(self, tree: Dict[str, Any]) -> None:
+        """Adopt a rolled-back ``{params, outer}`` subset and drain the buffer:
+        its deltas were admitted into the poisoned trajectory. ``round``,
+        ``rng`` and the dispatch machinery keep advancing; in-flight
+        snapshots keep the params they were dispatched with."""
+        m = self.acfg.buffer_size
+        params = clone(tree["params"])
+        self.state = dict(
+            self.state, params=params, outer=clone(tree["outer"]),
+            buffer=tree_map(lambda p: torch.zeros((m,) + tuple(p.shape), dtype=torch.float32,
+                                                  device=p.device), params),
+            buf_weights=torch.zeros((m,), dtype=torch.float32),
+            buf_staleness=torch.zeros((m,), dtype=torch.float32),
+            buf_count=0,
+        )
 
     def _restore_dispatch(self, manifest: Dict[str, Any], inflight) -> None:
         self.validate_manifest(manifest, self.kind)
@@ -593,9 +871,11 @@ class AsyncFederationDriver(AsyncBufferAggregator):
         codec: Optional[Codec] = None,
         dispatch: Optional[Dict[str, Any]] = None,
         fused_server: bool = False,
+        robust: Optional[RobustAggConfig] = None,
     ):
         super().__init__(fed, acfg, pcfg, seed=seed, params=params, rng=rng, state=state,
-                         codec=codec, dispatch=dispatch, fused_server=fused_server)
+                         codec=codec, dispatch=dispatch, fused_server=fused_server,
+                         robust=robust)
         self.make_batches = make_batches
         self._loss_fn = loss_fn
         self._fed1 = replace(fed, clients_per_round=1, keep_inner_state=False)
@@ -605,6 +885,13 @@ class AsyncFederationDriver(AsyncBufferAggregator):
         the flush row when this completion's admission filled the buffer."""
         ev, snapshot, version = self._pop_completion()
         row = None
+        rs = self.robust_state
+        if ev.completes and rs is not None and rs.is_quarantined(int(ev.client),
+                                                                 int(self.state["round"])):
+            # a quarantined client never runs its phase: its time is wasted
+            self.work_wasted += ev.duration
+            self._dispatch()
+            return None
         if ev.completes:
             # the client consumed its data either way. A refusal for staleness
             # is certain at pop time (no flush can intervene), so its compute is
@@ -632,8 +919,13 @@ class AsyncFederationDriver(AsyncBufferAggregator):
                     self._res_scatter(self.residuals, ev.client, aux["residuals"])
                     self._res_norms.append(float(global_norm(aux["residuals"])))
                 delta = tree_map(lambda d: d[0], deltas)
+                if self.corrupt_fn is not None:
+                    # the Byzantine simulator corrupts the upload (the codec
+                    # payload, with a codec) before the door
+                    delta = self.corrupt_fn(int(ev.client), int(ev.index), delta)
                 self.uplink_bytes_total += self._bytes_per_upload
                 m = self.admit(delta, version, self.event_weight(ev))
+                self._note_admission(ev, m)
                 if m["accepted"] > 0:
                     self.work_completed += ev.duration
                     self._staleness.append(float(m["staleness"]))

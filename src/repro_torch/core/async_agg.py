@@ -42,6 +42,7 @@ synchronous round (tested).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional, Tuple
 
@@ -50,7 +51,7 @@ import torch
 
 from repro_torch.core.compression import Codec
 from repro_torch.core.federated import FederatedConfig, apply_aggregate, init_federated_state
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import global_norm, tree_leaves, tree_map
 
 #: the keys of a flush's metrics (the server phase's, then the buffer's)
 FLUSH_METRICS = (
@@ -148,8 +149,8 @@ def admit_delta(
     auto_flush: bool = True,  # flush here when the buffer fills
     codec: Optional[Codec] = None,  # uplink codec: the payload is decoded at the door
     apply_fn=None,  # server-phase override for the flush
-    screen: bool = False,
-    norm_bound=None,
+    screen: bool = False,  # the delta screen at the door (core/robust.py)
+    norm_bound=None,  # the admission norm bound under the screen (None: none)
 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Admit one pseudo-gradient into the buffer; with ``auto_flush``, flush
     when it fills.
@@ -161,13 +162,14 @@ def admit_delta(
     full buffer are refused without taking a slot; a full buffer never
     overwrites one. The admission scalars are host floats.
 
+    ``screen`` arms the payload defense: a non-finite decoded delta is always
+    refused, and with ``norm_bound`` one whose norm is above it (compared in
+    float32); neither takes a slot. A screened admission reports
+    ``delta_norm`` and ``screened``.
+
     ``metrics`` holds ``accepted``, ``staleness``, ``discounted_weight`` and
     ``buf_count``; with ``auto_flush`` also every :data:`FLUSH_METRICS` key
     (zero when no flush ran) and ``flushed``."""
-    if screen or norm_bound is not None:
-        raise NotImplementedError(
-            "the robust admission door (screen / norm_bound) is not ported yet "
-            "(ROADMAP.md queue A item 4)")
     if codec is not None:
         delta = codec.decode(delta)
     staleness = max(float(int(state["round"]) - int(client_round)), 0.0)
@@ -176,6 +178,14 @@ def admit_delta(
     accept = float(w) > 0.0
     if acfg.max_staleness > 0:
         accept = accept and staleness <= float(acfg.max_staleness)
+    screen_metrics: Dict[str, Any] = {}
+    if screen:
+        dn = float(global_norm(delta))
+        ok = math.isfinite(dn)  # NaN/inf payloads never reach a buffer slot
+        if norm_bound is not None:
+            ok = ok and dn <= float(np.float32(norm_bound))
+        accept = accept and ok
+        screen_metrics = {"delta_norm": dn, "screened": 0.0 if ok else 1.0}
     accept = accept and int(state["buf_count"]) < acfg.buffer_size
     if accept:
         idx = int(state["buf_count"])
@@ -188,6 +198,7 @@ def admit_delta(
         "accepted": 1.0 if accept else 0.0,
         "staleness": staleness,
         "discounted_weight": float(disc) if accept else 0.0,
+        **screen_metrics,
     }
     if auto_flush:
         if state["buf_count"] >= acfg.buffer_size:

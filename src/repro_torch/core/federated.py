@@ -11,7 +11,11 @@ One round:
 
 :func:`run_clients` is steps 1–3 and :func:`apply_aggregate` steps 4–5;
 :func:`federated_round` composes them, with ``apply_fn`` as the seam where
-``--fused-server`` plugs in ``kernels.fedcore.fused_apply_aggregate``. The
+``--fused-server`` plugs in ``kernels.fedcore.fused_apply_aggregate`` (and a
+robust rule, ``core/robust``, plugs in its own). A cohort can also cross the
+round in tiles (:func:`run_client_tile`, :func:`apply_aggregate_partial`);
+:func:`centralized_step` is the single-node baseline the paper compares
+against. The
 reference vmaps over the client axis inside one jitted scan; here the clients
 run one after another in a Python loop, and the deltas leave as stacked
 ``(C, ...)`` float32 leaves — the layout the fused server phase consumes.
@@ -403,6 +407,22 @@ def dp_noise_scale(fed: FederatedConfig, client_weights, C: int):
     return fed.dp_noise * torch.max(w) / torch.clamp(torch.sum(w), min=1e-12)
 
 
+def _weigh_clients(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """A (C,) weight vector broadcast over a (C, ...) leaf: x_k ← w_k x_k."""
+    return x * weights.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
+
+
+def _safe_weight_sum(weights: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.sum(weights), min=1e-12)  # all-masked round → zero update
+
+
+def _weighted_mean_clients(tree, weights: torch.Tensor):
+    """Σ_k w_k x_k / Σ_k w_k over the leading client axis of every leaf."""
+    w_sum = _safe_weight_sum(weights)
+    return tree_map(lambda x: torch.sum(_weigh_clients(x, weights), dim=0) / w_sum.to(x.dtype),
+                    tree)
+
+
 @torch.no_grad()
 def apply_aggregate(
     fed: FederatedConfig,
@@ -417,20 +437,16 @@ def apply_aggregate(
     if codec is not None:
         deltas = codec.decode_cohort(deltas)
     if client_weights is not None:
-        w = client_weights.float()
-        w_sum = torch.clamp(torch.sum(w), min=1e-12)
-        pseudo_grad = tree_map(
-            lambda x: torch.sum(x * w.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype),
-                                dim=0) / w_sum.to(x.dtype),
-            deltas,
-        )
+        pseudo_grad = _weighted_mean_clients(deltas, client_weights.float())
     else:
         pseudo_grad = tree_map(lambda x: torch.mean(x, dim=0), deltas)
     return _finish_aggregate(fed, state, pseudo_grad, _client_norms(deltas), client_weights)
 
 
 def _finish_aggregate(fed, state, pseudo_grad, delta_norms, client_weights):
-    """rng split → optional DP noise → outer update → metrics → new state."""
+    """rng split → optional DP noise → outer update → metrics → new state: the
+    shared tail of every server phase (the robust rules and the tiled round
+    swap only the pseudo-gradient in front of it)."""
     rng, noise_seed = split_rng(state["rng"])
     if fed.dp_noise > 0.0:
         scale = dp_noise_scale(fed, client_weights, delta_norms.shape[0])
@@ -648,3 +664,224 @@ def federated_round_with_uplink(
         lambda r, n: r.index_copy(0, sel.to(r.device), n), store, new_cohort_res
     )
     return new_core, metrics
+
+
+# ---------------------------------------------------------------------------
+# Streamed cohorts: tile client phase + partial-sum server phase
+# ---------------------------------------------------------------------------
+#
+# A cohort of C clients crosses the client phase C_tile clients at a time.
+# Each tile forwards Σ_k w_k Δ_k and its clients' delta norms; the server sums
+# the tiles and divides by Σ w once (the ``hierarchical_mean`` algebra), so the
+# (C, N) delta buffer is bounded by C_tile. With one tile the op sequence is
+# ``apply_aggregate``'s weighted mean split in two: bitwise the flat round.
+
+#: rng tag of tiles t > 0; tile 0 keeps the round's own rng lane
+TILE_RNG_TAG = 0x7113
+
+
+def tile_rng(rng: np.ndarray, tile_index: int) -> np.ndarray:
+    """The rng lane of tile ``tile_index``: tile 0 is the round's rng itself
+    (the one-tile ≡ flat identity); later tiles fold in ``TILE_RNG_TAG + t``
+    by this package's :func:`fold_in`, so their codec keys differ."""
+    if tile_index == 0:
+        return rng
+    return fold_in(rng, TILE_RNG_TAG + tile_index)
+
+
+def run_client_tile(
+    loss_fn: Callable,
+    fed: FederatedConfig,  # clients_per_round == C_tile
+    state: Dict[str, Any],  # needs 'params', 'round', 'rng' (the tile's rng lane)
+    batches: Dict[str, torch.Tensor],  # leaves (τ, C_tile, ...)
+    client_weights: torch.Tensor,  # (C_tile,) — required: padding slots weigh 0
+    codec: Optional[Codec] = None,
+    residuals=None,  # (C_tile, ...) error-feedback rows
+    tau_steps: Optional[np.ndarray] = None,  # (C_tile,)
+    return_deltas: bool = False,  # also return the decoded (C_tile, ...) deltas
+) -> Dict[str, Any]:
+    """One cohort tile of a streamed round: :func:`run_clients` on C_tile
+    clients, folded to the partial sums the server phase needs:
+    ``delta_sum`` (Σ_k w_k Δ_k, decoded), ``delta_norms`` (C_tile,),
+    ``eff_k`` and the client-side metric pieces (recombined across tiles by
+    :func:`combine_tile_metrics`); ``residuals`` and ``uplink_residual_norm``
+    for a stateful codec. ``return_deltas`` adds the decoded deltas, which the
+    robust tiled fold needs (order statistics are not recoverable from a
+    sum); without it they are freed when this returns."""
+    if fed.keep_inner_state:
+        raise ValueError(
+            "streamed cohorts cannot keep per-client inner state across rounds "
+            "(the (C,)-batched inner store is exactly the memory term tiling "
+            "removes); use keep_inner_state=False"
+        )
+    deltas, aux = run_clients(loss_fn, fed, state, batches, client_weights=client_weights,
+                              tau_steps=tau_steps, codec=codec, residuals=residuals)
+    with torch.no_grad():
+        if codec is not None:
+            deltas = codec.decode_cohort(deltas)
+        w = client_weights.float()
+        out = {
+            "delta_sum": tree_map(lambda x: torch.sum(_weigh_clients(x, w), dim=0), deltas),
+            "delta_norms": _client_norms(deltas),
+            "eff_k": torch.sum((w > 0).float()),
+            "step_metrics": aux["step_metrics"],
+            "client_model_norm_mean": aux["client_model_norm_mean"],
+            "avg_client_model_norm": aux["avg_client_model_norm"],
+        }
+    if "residuals" in aux:
+        out["residuals"] = aux["residuals"]
+        out["uplink_residual_norm"] = aux["uplink_residual_norm"]
+    if return_deltas:
+        out["deltas"] = deltas
+    return out
+
+
+@torch.no_grad()
+def apply_aggregate_partial(
+    fed: FederatedConfig,
+    state: Dict[str, Any],  # needs 'params', 'outer', 'round', 'rng'
+    delta_sum,  # tree: Σ over every tile of Σ_k w_k Δ_k (no client axis)
+    client_weights: torch.Tensor,  # (C_total,) the whole cohort's weights, pads at 0
+    delta_norms: torch.Tensor,  # (C_total,) decoded per-client delta norms
+) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+    """Server phase of a streamed round: the one divide of the two-tier
+    aggregation, then :func:`_finish_aggregate` — :func:`apply_aggregate` with
+    the weighted mean's numerator summed by the tiles, op for op, so a
+    one-tile round is bitwise the flat round. Padding slots add exact zeros
+    to the sum, nothing to Σw or max w, and the metrics mask them by w > 0."""
+    w = client_weights.float()
+    w_sum = _safe_weight_sum(w)
+    pseudo_grad = tree_map(lambda s: s / w_sum.to(s.dtype), delta_sum)
+    return _finish_aggregate(fed, state, pseudo_grad, delta_norms, client_weights)
+
+
+def combine_tile_metrics(tile_outs) -> Dict[str, torch.Tensor]:
+    """The client-side half of :func:`federated_round`'s metrics from the
+    tiles' outputs. One tile passes through verbatim (the flat round's
+    assembly). More tiles fold each tile's participation-weighted means by its
+    effective client count: exact for the per-step series, an approximation
+    for ``avg_client_model_norm`` and ``uplink_residual_norm`` (a norm of a
+    mean does not decompose across tiles; both are monitors only)."""
+    if len(tile_outs) == 1:
+        t = tile_outs[0]
+        sm = t["step_metrics"]
+        out = {
+            "train_loss": sm["loss"][-1],
+            "train_loss_mean": torch.mean(sm["loss"]),
+            "client_grad_norm": sm["grad_norm"][-1],
+            "applied_update_norm": sm["applied_update_norm"][-1],
+            "lr": sm["lr"][-1],
+            "client_model_norm_mean": t["client_model_norm_mean"],
+            "avg_client_model_norm": t["avg_client_model_norm"],
+        }
+        if "uplink_residual_norm" in t:
+            out["uplink_residual_norm"] = t["uplink_residual_norm"]
+        return out
+
+    eff = torch.stack([t["eff_k"].float() for t in tile_outs])
+    tile_w = eff / torch.clamp(torch.sum(eff), min=1.0)  # an all-pad tile weighs 0
+
+    def fold(vals):
+        v = torch.stack(vals)
+        return torch.sum(v * tile_w.reshape((-1,) + (1,) * (v.ndim - 1)), dim=0)
+
+    sm = {k: fold([t["step_metrics"][k] for t in tile_outs])
+          for k in tile_outs[0]["step_metrics"]}
+    out = {
+        "train_loss": sm["loss"][-1],
+        "train_loss_mean": torch.mean(sm["loss"]),
+        "client_grad_norm": sm["grad_norm"][-1],
+        "applied_update_norm": sm["applied_update_norm"][-1],
+        "lr": sm["lr"][-1],
+        "client_model_norm_mean": fold([t["client_model_norm_mean"] for t in tile_outs]),
+        "avg_client_model_norm": fold([t["avg_client_model_norm"] for t in tile_outs]),
+    }
+    if "uplink_residual_norm" in tile_outs[0]:
+        out["uplink_residual_norm"] = fold([t["uplink_residual_norm"] for t in tile_outs])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Centralized baseline (the paper's comparison target)
+# ---------------------------------------------------------------------------
+
+
+def _inner_tree(inner_state: Dict[str, Any], treedef) -> Dict[str, Any]:
+    return {k: v if k == "count" else tree_unflatten(treedef, v)
+            for k, v in inner_state.items()}
+
+
+def init_centralized_state(inner: InnerOptConfig, params) -> Dict[str, Any]:
+    """``{"params", "inner", "step"}`` with the reference's key paths: the
+    inner lanes are params-shaped trees, ``count`` and ``step`` ints."""
+    leaves, treedef = tree_flatten(params)
+    return {"params": params, "inner": _inner_tree(init_inner_state(inner, leaves), treedef),
+            "step": 0}
+
+
+def centralized_step(
+    loss_fn: Callable,
+    inner: InnerOptConfig,
+    state: Dict[str, Any],
+    batch: Dict[str, torch.Tensor],  # leaves (B, ...) — the whole global batch
+    grad_accum: int = 1,
+) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One synchronous data-parallel step on a single node: the gradient of
+    the global batch (averaged over ``grad_accum`` micro-batches), then the
+    inner optimizer. Returns ``(new_state, metrics)``; ``state`` is left as
+    it was."""
+    leaves, treedef = tree_flatten(state["params"])
+    loss, metrics, grads = _accum_value_and_grad(loss_fn, treedef, leaves, batch, grad_accum)
+    inner_state = {k: v if k == "count" else tree_leaves(v) for k, v in state["inner"].items()}
+    new_leaves, new_inner, opt_metrics = inner_update(inner, leaves, grads, inner_state,
+                                                      int(state["step"]))
+    metrics = dict(metrics, **opt_metrics)
+    with torch.no_grad():
+        metrics["global_model_norm"] = global_norm(new_leaves)
+    new_state = {"params": tree_unflatten(treedef, new_leaves),
+                 "inner": _inner_tree(new_inner, treedef), "step": int(state["step"]) + 1}
+    return new_state, metrics
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical (two-level) aggregation — Photon's sub-federation (Alg. 1 L.19–24)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def hierarchical_mean(deltas, n_groups: int, weights: Optional[torch.Tensor] = None):
+    """Two-phase mean: a partial aggregate within each of ``n_groups`` islands,
+    then across islands. With ``weights`` (C,) each island forwards Σ_k w_k Δ_k
+    and the server divides once by the real Σ w: uneven islands zero-pad the
+    client axis to a multiple of ``n_groups`` (a pad weighs 0 and adds exact
+    zeros). The unweighted form cannot mark a pad absent and raises
+    ``ValueError`` when C does not divide."""
+    if weights is None:
+
+        def two_level(x):
+            if x.shape[0] % n_groups != 0:
+                raise ValueError(
+                    f"client axis of size {x.shape[0]} does not divide into {n_groups} equal "
+                    "groups; pass weights= to use the zero-weight padding path"
+                )
+            grouped = x.reshape((n_groups, x.shape[0] // n_groups) + tuple(x.shape[1:]))
+            return torch.mean(torch.mean(grouped, dim=1), dim=0)
+
+        return tree_map(two_level, deltas)
+
+    w = weights.float()
+    w_sum = _safe_weight_sum(w)  # the real clients only
+    c = int(w.shape[0])
+    pad = (-c) % n_groups
+    w_padded = torch.cat([w, torch.zeros((pad,), dtype=torch.float32, device=w.device)]) \
+        if pad else w
+
+    def two_level_weighted(x):
+        if pad:
+            x = torch.cat([x, torch.zeros((pad,) + tuple(x.shape[1:]), dtype=x.dtype,
+                                          device=x.device)], dim=0)
+        grouped = _weigh_clients(x, w_padded).reshape(
+            (n_groups, (c + pad) // n_groups) + tuple(x.shape[1:]))
+        return torch.sum(torch.sum(grouped, dim=1), dim=0) / w_sum.to(x.dtype)
+
+    return tree_map(two_level_weighted, deltas)

@@ -12,6 +12,18 @@ with a staleness-discounted weight, and one outer update applies per
 ``--buffer-size`` admitted deltas; every update checkpoints the buffer, the
 in-flight slots and the dispatch cursor, so ``--resume`` continues bitwise.
 
+``--cohort-tile`` (sync) streams the cohort through the round a tile of
+clients at a time, so the ``(C, N)`` delta buffer is bounded by the tile; one
+tile is bitwise the flat round. ``--robust-agg {trimmed,median,normclip}``
+swaps the server's weighted mean for a robust rule (a per-tile fold under
+``--cohort-tile``), ``--screen`` zero-weights (sync) or refuses at the buffer
+door (async) non-finite and norm-outlier deltas and quarantines their
+senders, and ``--rollback`` (with ``--ckpt-dir``) restores the server from the
+last good checkpoint when an update norm spikes or goes non-finite; their
+state rides the checkpoint manifest. ``--byzantine-fraction`` (async) makes
+the lowest population ids attackers that corrupt every upload
+(``--byzantine-kind``).
+
 ``--fused-server`` runs the server step (weighted mean + DP noise + outer
 update + its norms) as one pass over the flat ``(C, N)`` delta buffer — on the
 card, the hand-written CUDA ``server_apply`` kernel (async: once per flush,
@@ -28,13 +40,16 @@ Usage:
       --uplink topk
   PYTHONPATH=src python -m repro_torch.launch.train --arch photon-75m --fused-server \\
       --aggregation async --straggler-profile heavy --dropout-rate 0.1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch photon-75m --clients 16 \\
+      --cohort-tile 4 --robust-agg trimmed
+  PYTHONPATH=src python -m repro_torch.launch.train --arch photon-75m --fused-server \\
+      --aggregation async --byzantine-fraction 0.25 --byzantine-kind nan --rollback \\
+      --ckpt-dir "$(mktemp -d)"
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
       --local-steps 2 --clients 2 --population 4 --seq-len 64 --device cpu
 
-Not ported yet, and refused when set (see ROADMAP.md queue A): ``--cohort-tile``,
-the robust flags (``--robust-agg``, ``--screen``, ``--rollback``,
-``--byzantine-*``), ``--control`` and ``--runtime sockets``. Tracing has no
-flag here.
+Not ported yet, and refused when set (see ROADMAP.md queue A): ``--control``
+and ``--runtime sockets``. Tracing has no flag here.
 """
 from __future__ import annotations
 
@@ -47,6 +62,8 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import (
+    CORRUPT_KINDS,
+    ROBUST_RULES,
     STRAGGLER_PROFILES,
     UPLINK_SCHEMES,
     AsyncAggConfig,
@@ -56,8 +73,10 @@ from repro_torch.core import (
     InnerOptConfig,
     OuterOptConfig,
     ParticipationConfig,
+    RobustAggConfig,
     SyncAggregator,
     get_codec,
+    make_byzantine_fn,
     plan_round,
     prng_key,
 )
@@ -84,18 +103,31 @@ def resolve_device(name: str) -> torch.device:
 
 #: the reference's flags whose subsystems are not ported, as the reference
 #: parses them, with the ROADMAP.md queue A item that ports each: each is
-#: refused unless it has the reference's default (``--cohort-tile`` in either
-#: aggregation mode)
+#: refused unless it has the reference's default
 _UNPORTED_FLAGS = (
-    ("--cohort-tile", dict(type=int, default=None), 3),
-    ("--robust-agg", dict(default="none", choices=["none", "trimmed", "median", "normclip"]), 4),
-    ("--screen", dict(action="store_true"), 4),
-    ("--rollback", dict(action="store_true"), 4),
-    ("--byzantine-fraction", dict(type=float, default=0.0), 4),
-    ("--byzantine-kind", dict(default="scale", choices=["nan", "inf", "scale", "sign_flip"]), 4),
     ("--control", dict(default="static", choices=["static", "staleness", "cohort"]), 5),
     ("--runtime", dict(default="inproc", choices=["inproc", "sockets"]), 6),
 )
+
+
+def _robust_from_args(args):
+    """The robust flags as a :class:`RobustAggConfig`, or None when every
+    defense is off (no robust code runs then)."""
+    if args.robust_agg == "none" and not args.screen and not args.rollback:
+        return None
+    return RobustAggConfig(
+        rule=args.robust_agg,
+        trim_fraction=args.trim_fraction,
+        clip_mult=args.clip_mult,
+        clip_norm=args.clip_norm,
+        screen=args.screen,
+        screen_z=args.screen_z,
+        screen_warmup=args.screen_warmup,
+        rollback=args.rollback,
+        rollback_window=args.rollback_window,
+        rollback_factor=args.rollback_factor,
+        quarantine_rounds=args.quarantine_rounds,
+    )
 
 
 def parse_args(argv=None):
@@ -147,6 +179,47 @@ def parse_args(argv=None):
     ap.add_argument("--max-staleness", type=int, default=0,
                     help="async: reject deltas older than this many server rounds "
                          "(0 = accept any age)")
+    ap.add_argument("--cohort-tile", type=int, default=None,
+                    help="sync: stream the cohort through the round in tiles of this many "
+                         "clients (Σ w·Δ per tile, one divide), so the (C, N) delta buffer "
+                         "is bounded by the tile; bitwise the flat round when the tile equals "
+                         "--clients. Incompatible with --fused-server and --keep-opt")
+    ap.add_argument("--robust-agg", default="none", choices=list(ROBUST_RULES),
+                    help="Byzantine-robust aggregation rule: none (the weighted mean), "
+                         "trimmed (coordinate-wise trimmed mean), median (coordinate-wise "
+                         "median) or normclip (per-delta norm clipping before the mean)")
+    ap.add_argument("--trim-fraction", type=float, default=0.1,
+                    help="--robust-agg trimmed: fraction trimmed from EACH tail")
+    ap.add_argument("--clip-mult", type=float, default=3.0,
+                    help="--robust-agg normclip: threshold as a multiple of the cohort's "
+                         "median delta norm (when --clip-norm is 0)")
+    ap.add_argument("--clip-norm", type=float, default=0.0,
+                    help="--robust-agg normclip: absolute threshold (0 = from --clip-mult; "
+                         "required > 0 with --cohort-tile)")
+    ap.add_argument("--screen", action="store_true",
+                    help="delta screen: non-finite deltas and norm outliers past "
+                         "--screen-z robust z-scores weigh 0 (sync) or are refused at the "
+                         "buffer door (async), and their senders are quarantined")
+    ap.add_argument("--screen-z", type=float, default=6.0,
+                    help="--screen: robust z-score threshold")
+    ap.add_argument("--screen-warmup", type=int, default=8,
+                    help="async --screen: admitted norms before the adaptive bound engages")
+    ap.add_argument("--rollback", action="store_true",
+                    help="divergence guard (requires --ckpt-dir): an update norm past "
+                         "--rollback-factor × the trailing window's median, or non-finite, "
+                         "restores params/outer from the last good checkpoint")
+    ap.add_argument("--rollback-window", type=int, default=8,
+                    help="--rollback: trailing update norms in the guard window")
+    ap.add_argument("--rollback-factor", type=float, default=4.0,
+                    help="--rollback: spike multiple over the window median that trips it")
+    ap.add_argument("--quarantine-rounds", type=int, default=4,
+                    help="rounds a screened or rolled-back client is excluded")
+    ap.add_argument("--byzantine-fraction", type=float, default=0.0,
+                    help="simulated attack (async): population clients below "
+                         "floor(fraction·P) corrupt every delta they push")
+    ap.add_argument("--byzantine-kind", default="scale",
+                    choices=[k for k in CORRUPT_KINDS if k != "replay"],
+                    help="what the --byzantine-fraction attackers send")
     for flag, spec, item in _UNPORTED_FLAGS:
         ap.add_argument(flag, **spec, help=f"not ported: refused unless left at its "
                                            f"default (ROADMAP.md queue A item {item})")
@@ -160,12 +233,6 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.aggregation == "async" and args.keep_opt:
-        raise SystemExit(
-            "--keep-opt with --aggregation async is not supported: async clients are "
-            "stateless (paper §7.8) — a client's next dispatch may serve a different "
-            "model version, so persisted inner Adam state would be silently stale"
-        )
     for flag, spec, item in _UNPORTED_FLAGS:
         value = getattr(args, flag[2:].replace("-", "_"))
         if value != spec.get("default", False):
@@ -177,6 +244,70 @@ def _refuse_unported(args) -> None:
             "--uplink and the legacy --pseudo-grad-dtype are mutually exclusive: "
             "the codec already defines the wire format"
         )
+
+
+def _refuse_compositions(args):
+    """The reference's refusals of flag combinations, in its order and
+    wording; returns the robust config."""
+    try:
+        robust = _robust_from_args(args)
+    except ValueError as e:
+        raise SystemExit(f"--robust-agg: {e}")
+    if robust is not None and args.rollback and not args.ckpt_dir:
+        raise SystemExit(
+            "--rollback restores the server from the last good checkpoint — "
+            "it requires --ckpt-dir"
+        )
+    if robust is not None and robust.active and args.fused_server:
+        raise SystemExit(
+            "--robust-agg/--screen and --fused-server are mutually exclusive: "
+            "the fused Pallas server path computes the plain weighted mean "
+            "in one pass and has no robust-rule variant (docs/robustness.md)"
+        )
+    if robust is not None and args.cohort_tile:
+        if robust.screen:
+            raise SystemExit(
+                "--screen needs the whole cohort's delta norms at once and "
+                "cannot compose with --cohort-tile streaming; use "
+                "--robust-agg trimmed/median (tiled per-coordinate folds) "
+                "or normclip with an absolute --clip-norm"
+            )
+        if robust.rule == "normclip" and robust.clip_norm <= 0.0:
+            raise SystemExit(
+                "--robust-agg normclip under --cohort-tile needs an absolute "
+                "--clip-norm: the median-derived threshold (--clip-mult) "
+                "requires every cohort norm before any tile is folded"
+            )
+    if args.byzantine_fraction > 0.0 and (args.aggregation != "async"
+                                          or args.runtime != "inproc"):
+        raise SystemExit(
+            "--byzantine-fraction is the in-process async attack simulator "
+            "(the bench harness hook); under --runtime sockets inject payload "
+            "corruption with --chaos-corrupt instead"
+        )
+    if args.aggregation == "async":
+        if args.cohort_tile:
+            raise SystemExit(
+                "--cohort-tile applies to --aggregation sync only: the async "
+                "path already streams one client delta at a time into the "
+                "buffer, so its memory is bounded by the buffer size M, not "
+                "the cohort"
+            )
+        if args.keep_opt:
+            raise SystemExit(
+                "--keep-opt with --aggregation async is not supported: async "
+                "clients are stateless (paper §7.8) — a client's next dispatch "
+                "may serve a different model version, so persisted inner Adam "
+                "state would be silently stale"
+            )
+    return robust
+
+
+def _roll_back(ckpt, agg, good: int) -> None:
+    """Adopt the ``{params, outer}`` of checkpoint ``good``."""
+    like = {"params": agg.state["params"], "outer": agg.state["outer"]}
+    restored, _ = ckpt.load_server(good, like)
+    agg.adopt_model(restored)
 
 
 def _resume(args, agg, fed, pcfg, params, codec, streams, ckpt):
@@ -197,12 +328,11 @@ def _resume(args, agg, fed, pcfg, params, codec, streams, ckpt):
                 f"the buffer lanes and the in-flight dispatch queue — resume with the "
                 f"original aggregation mode or start fresh"
             )
-        for key in ("control", "robust"):
-            if key in agg_man:
-                raise SystemExit(
-                    f"--resume: checkpoint round {latest} carries {key!r} state, "
-                    f"which this package does not port yet (ROADMAP.md)"
-                )
+        if "control" in agg_man:
+            raise SystemExit(
+                f"--resume: checkpoint round {latest} carries 'control' state, which "
+                f"this package does not port yet (ROADMAP.md queue A item 5)"
+            )
         try:
             SyncAggregator.validate_manifest(agg_man, "sync")
         except ValueError as e:
@@ -243,6 +373,7 @@ def _resume(args, agg, fed, pcfg, params, codec, streams, ckpt):
 
 def run(args, cfg=None) -> dict:
     _refuse_unported(args)
+    robust = _refuse_compositions(args)
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch)
@@ -289,12 +420,12 @@ def run(args, cfg=None) -> dict:
              if args.uplink != "float32" else None)
     if args.aggregation == "async":
         return _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec,
-                          device)
+                          device, robust)
 
     agg = SyncAggregator(
         model.loss, fed, pcfg, seed=args.seed, partial_progress=args.partial_progress,
         fused_server=args.fused_server, params=params, rng=prng_key(args.seed + 1),
-        codec=codec,
+        codec=codec, cohort_tile=args.cohort_tile, robust=robust,
     )
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start_round = (_resume(args, agg, fed, pcfg, params, codec, streams, ckpt)
@@ -340,9 +471,35 @@ def run(args, cfg=None) -> dict:
             f"stragglers={plan.n_stragglers} dropped={plan.n_dropped}"
             f"{partial} [{metrics['seconds']:.1f}s]"
         )
+        # the divergence guard sees this round's update norm before the
+        # checkpoint is saved, so a poisoned round never becomes a resume point
+        rs = agg.robust_state
+        tripped = rolled_back = False
+        if rs is not None and robust.rollback:
+            metrics["rolled_back"] = 0.0
+            tripped = rs.observe_update(metrics["pseudo_grad_norm"])
+            if tripped:
+                good = rs.last_good
+                if good >= 0 and ckpt is not None:
+                    _roll_back(ckpt, agg, good)
+                    contributors = [int(c) for c in sel[plan.mask]]
+                    rs.add_quarantine(contributors, rnd)
+                    rs.note_rollback()
+                    rolled_back = True
+                    metrics["rolled_back"] = 1.0
+                    print(f"  ROLLBACK: update norm {metrics['pseudo_grad_norm']:.4g} tripped "
+                          f"the divergence guard — restored round {good}, quarantined "
+                          f"{contributors} for {robust.quarantine_rounds} rounds")
+                else:
+                    print("  divergence guard tripped but no good checkpoint exists yet — "
+                          "continuing without rollback")
         if logger:
             logger.log(metrics)
         if ckpt:
+            if rs is not None and (not tripped or rolled_back):
+                # marked before checkpoint(), so the saved manifest's last_good
+                # names this round, valid exactly when this checkpoint is complete
+                rs.mark_good(rnd)
             tree, agg_manifest = agg.checkpoint()
             ckpt.save_server(rnd, tree, extra={"args": vars(args), "aggregator": agg_manifest})
             for i in range(args.population):
@@ -399,8 +556,8 @@ def _check_async_resume_args(args, ck_args: dict) -> None:
             )
 
 
-def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, device
-               ) -> dict:
+def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, device,
+               robust=None) -> dict:
     """Event-driven FedBuff-style training: K busy client slots, a server-side
     delta buffer, one outer update per ``--buffer-size`` admitted deltas.
     Every update checkpoints the aggregator's schema (buffer lanes, residual
@@ -438,12 +595,11 @@ def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, 
                     f"manifest (written by a sync run, or before the resumable schema) — "
                     f"the in-flight dispatch queue cannot be replayed; start fresh"
                 )
-            for key in ("control", "robust"):
-                if key in dispatch:
-                    raise SystemExit(
-                        f"--resume: checkpoint round {latest} carries {key!r} state, which "
-                        f"this package does not port yet (ROADMAP.md)"
-                    )
+            if "control" in dispatch:
+                raise SystemExit(
+                    f"--resume: checkpoint round {latest} carries 'control' state, which "
+                    f"this package does not port yet (ROADMAP.md queue A item 5)"
+                )
             try:
                 AsyncBufferAggregator.validate_manifest(dispatch, "async")
             except ValueError as e:
@@ -465,8 +621,11 @@ def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, 
     driver = AsyncFederationDriver(
         model.loss, fed, acfg, pcfg, make_batches, seed=args.seed, params=params,
         rng=prng_key(args.seed + 1), codec=codec, state=state, dispatch=dispatch,
-        fused_server=args.fused_server,
+        fused_server=args.fused_server, robust=robust,
     )
+    # the in-process attack simulator: the lowest population ids corrupt every upload
+    driver.corrupt_fn = make_byzantine_fn(args.byzantine_fraction, args.byzantine_kind,
+                                          args.population)
 
     # what the deadline-masking sync schedule pays to aggregate as many deltas
     sync_cum = [(0.0, 0)]  # (cumulative sim time, cumulative aggregated deltas)
@@ -516,9 +675,31 @@ def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, 
             f"t_sim={row['sim_time']:.2f} speedup={row['wallclock_speedup']:.2f}x "
             f"[{row['seconds']:.1f}s]"
         )
+        # the async guard: a spiking flush norm rolls the server back to the
+        # last good update and drains the buffer; no one is quarantined (the
+        # flush mixes many senders — repeat offenders are the door's job)
+        rs = driver.robust_state
+        tripped = rolled_back = False
+        if rs is not None and robust.rollback:
+            row["rolled_back"] = 0.0
+            tripped = rs.observe_update(row["pseudo_grad_norm"])
+            if tripped:
+                good = rs.last_good
+                if good >= 0 and ckpt is not None:
+                    _roll_back(ckpt, driver, good)
+                    rs.note_rollback()
+                    rolled_back = True
+                    row["rolled_back"] = 1.0
+                    print(f"  ROLLBACK: flush norm tripped the divergence guard — restored "
+                          f"update {good} (buffer drained)")
+                else:
+                    print("  divergence guard tripped but no good checkpoint exists yet — "
+                          "continuing without rollback")
         if logger:
             logger.log(row)
         if ckpt:
+            if rs is not None and (not tripped or rolled_back):
+                rs.mark_good(u)
             tree, agg_manifest = driver.checkpoint()
             ckpt.save_server(u, tree, extra={
                 "args": vars(args), "aggregator": agg_manifest,

@@ -19,7 +19,8 @@
   lr_max), with at most 16 entries above 1e-5 (see the test).
 - Checkpoints cross over in both directions through the two CLIs (default
   bf16 compute: losses to rel 2e-2, val_ppl 5e-2, as ``test_torch_train.py``).
-- The CLI refuses what is not ported and resumes bitwise.
+- The CLI refuses what is not ported, and what the reference refuses, and
+  resumes bitwise.
 """
 import csv
 import dataclasses
@@ -320,10 +321,19 @@ def test_int8_payload_is_decoded_at_the_door_even_when_refused():
 
 
 def test_robust_door_is_refused_naming_the_roadmap():
+    """The robust door (``screen`` / ``norm_bound``, ROADMAP.md queue A item
+    4): a non-finite delta and one over the bound are refused without taking
+    a slot, a clean one is admitted (``test_torch_robust.py`` holds it to the
+    reference's door)."""
     jfed, tfed = _feds(2, 2)
     _, tacfg, _, ts = _both_states(jfed, tfed, dict(buffer_size=2), _np_params())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-        T.admit_delta(tfed, tacfg, ts, _t(_deltas(1)[0]), 0, 1.0, screen=True)
+    clean = _t(_deltas(1)[0])
+    for delta, bound, accepted in ((tree_map(lambda x: x * float("nan"), clean), None, 0.0),
+                                   (clean, 1e-6, 0.0), (clean, None, 1.0)):
+        ts, m = T.admit_delta(tfed, tacfg, ts, delta, 0, 1.0, auto_flush=False, screen=True,
+                              norm_bound=bound)
+        assert (m["accepted"], m["screened"]) == (accepted, 1.0 - accepted)
+    assert ts["buf_count"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -656,17 +666,28 @@ def test_cli_runs_two_updates_and_resume_continues_bitwise(tmp_path, uplink):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--keep-opt"], "--keep-opt with --aggregation async"),
-    (["--cohort-tile", "2"], "queue A item 3"),
-    (["--runtime", "sockets"], "queue A item 6"),
-    (["--control", "staleness"], "queue A item 5"),
-    (["--robust-agg", "trimmed"], "queue A item 4"),
-    (["--screen"], "queue A item 4"),
-    (["--rollback"], "queue A item 4"),
-    (["--byzantine-fraction", "0.1"], "queue A item 4"),
-    (["--byzantine-kind", "nan"], "queue A item 4"),
-], ids=lambda x: x[0] if isinstance(x, list) else None)
+    pytest.param(["--keep-opt"], "--keep-opt with --aggregation async",
+                 id="--keep-opt---keep-opt with --aggregation async"),
+    pytest.param(["--cohort-tile", "2"], "applies to --aggregation sync only",
+                 id="--cohort-tile-queue A item 3"),
+    pytest.param(["--runtime", "sockets"], "queue A item 6", id="--runtime-queue A item 6"),
+    pytest.param(["--control", "staleness"], "queue A item 5", id="--control-queue A item 5"),
+    pytest.param(["--robust-agg", "trimmed"], "and --fused-server are mutually exclusive",
+                 id="--robust-agg-queue A item 4"),
+    pytest.param(["--screen"], "and --fused-server are mutually exclusive",
+                 id="--screen-queue A item 4"),
+    pytest.param(["--rollback"], "it requires --ckpt-dir", id="--rollback-queue A item 4"),
+    pytest.param(["--byzantine-fraction", "0.1", "--aggregation", "sync"],
+                 "in-process async attack simulator", id="--byzantine-fraction-queue A item 4"),
+    pytest.param(["--byzantine-kind", "nan", "--byzantine-fraction", "0.5",
+                  "--aggregation", "sync"], "in-process async attack simulator",
+                 id="--byzantine-kind-queue A item 4"),
+])
 def test_cli_refuses_what_is_not_ported(extra, match):
+    """``--control`` and ``--runtime sockets`` are not ported (ROADMAP.md
+    queue A items 5 and 6) and refused; the cohort-tile, robust and
+    Byzantine flags are ported and refused only where the reference refuses
+    them (``test_torch_robust_cli.py`` compares the wording)."""
     with pytest.raises(SystemExit, match=match):
         tt.run(tt.parse_args(ASYNC + ["--rounds", "1", "--device", "cpu"] + extra))
 

@@ -102,10 +102,12 @@ def test_outer_steps_match(name):
 
 
 def _round_pair(*, fused, outer, straggler=None, partial=False, tau=2, seed=0,
-                rounds=1, **fed_opts):
+                rounds=1, clients=2, cohort_tile=None, j_robust=None, t_robust=None,
+                **fed_opts):
     """Run ``rounds`` rounds of each package from the same weights, plans and
-    batches; ``fed_opts`` go to both FederatedConfigs."""
-    C, P, B, S = 2, 4, 2, 64
+    batches; ``fed_opts`` go to both FederatedConfigs, ``cohort_tile`` to both
+    aggregators, ``j_robust`` / ``t_robust`` to each package's."""
+    C, P, B, S = clients, max(4, 2 * clients), 2, 64
     jcfg = dataclasses.replace(j_get_config("photon-75m").reduced(), compute_dtype="float32")
     tcfg = dataclasses.replace(t_get_config("photon-75m").reduced(), compute_dtype="float32")
     jm, tm = j_build(jcfg), t_build(tcfg)
@@ -121,10 +123,11 @@ def _round_pair(*, fused, outer, straggler=None, partial=False, tau=2, seed=0,
     tpc = TPC(straggler=TStraggler(**dataclasses.asdict(straggler or J_PROFILES["none"])),
               **pkw)
     jagg = JSync(lambda p, b: jm.loss(p, b), jfed, jpc, seed=seed, partial_progress=partial,
-                 params=params, rng=jax.random.PRNGKey(1), fused_server=fused)
+                 params=params, rng=jax.random.PRNGKey(1), fused_server=fused,
+                 cohort_tile=cohort_tile, robust=j_robust)
     tagg = TSync(tm.loss, tfed, tpc, seed=seed, partial_progress=partial,
                  params=jax_to_torch(params), rng=np.asarray(jax.random.PRNGKey(1)),
-                 fused_server=fused)
+                 fused_server=fused, cohort_tile=cohort_tile, robust=t_robust)
     streams = build_client_streams(P, S, jcfg.vocab_size, heterogeneous=False, seed=seed)
     for rnd in range(rounds):
         plan = jagg.plan(rnd)
@@ -210,3 +213,234 @@ def test_dp_noise_has_the_reference_scale(fused):
     assert abs(diff.mean()) < 0.01
     np.testing.assert_array_equal(noisy["rng"], split_rng(prng_key(3))[0])
     assert not np.array_equal(noisy["rng"], prng_key(3))
+
+
+# ---------------------------------------------------------------------------
+# Streamed cohorts (cohort tiles), hierarchical means, the centralized step
+# ---------------------------------------------------------------------------
+
+
+def test_tile_rng_keeps_the_round_lane_for_tile_zero():
+    from repro.core.federated import TILE_RNG_TAG as J_TAG
+    from repro_torch.core.federated import TILE_RNG_TAG, fold_in, tile_rng
+
+    rng = np.asarray(jax.random.PRNGKey(7))
+    assert TILE_RNG_TAG == J_TAG
+    assert tile_rng(rng, 0) is rng
+    lanes = [tile_rng(rng, t) for t in range(1, 5)]
+    for t, lane in enumerate(lanes, start=1):
+        assert lane.dtype == np.uint32 and lane.shape == (2,)
+        np.testing.assert_array_equal(lane, fold_in(rng, TILE_RNG_TAG + t))
+    assert len({tuple(x) for x in lanes + [rng]}) == 5
+
+
+def _quad_t(params, batch):
+    loss = torch.mean(torch.square(batch["x"] @ params["w"] + params["b"][0] - batch["y"]))
+    return loss, {"loss": loss}
+
+
+def _quad_setup(c, codec=None, partial=False, tile=None, dp_noise=0.0):
+    from repro_torch.core import get_codec
+
+    rng = np.random.default_rng(0)
+    params = {"w": torch.from_numpy(rng.standard_normal((4, 4)).astype(np.float32)),
+              "b": [torch.from_numpy((rng.standard_normal(4) * 0.1).astype(np.float32))]}
+    inner = t_inner.InnerOptConfig(name="sgd", lr_max=0.05, weight_decay=0.0, grad_clip=1e9,
+                                   warmup_steps=0, total_steps=100, alpha=1.0)
+    fed = TFed(clients_per_round=c, local_steps=3, inner=inner, dp_noise=dp_noise,
+               outer=t_outer.OuterOptConfig(name="fedmom", lr=0.7))
+    heavy = dataclasses.replace(J_PROFILES["heavy"], deadline=0.75)
+    pcfg = TPC(population=2 * c, clients_per_round=c, weighting="examples", dropout_rate=0.2,
+               straggler=TStraggler(**dataclasses.asdict(heavy)))
+    return TSync(_quad_t, fed, pcfg, seed=1, partial_progress=partial, params=params,
+                 rng=np.asarray(jax.random.PRNGKey(2)), cohort_tile=tile,
+                 codec=get_codec(codec, 0.25) if codec else None)
+
+
+def _quad_batches(tau, c, seed):
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.standard_normal((tau, c, 8, 4)).astype(np.float32))
+            for k in ("x", "y")}
+
+
+@pytest.mark.parametrize("codec,partial,dp_noise", [
+    (None, False, 0.0), (None, True, 0.01), ("topk", False, 0.0), ("bf16", True, 0.0),
+    ("int8", False, 0.01),
+], ids=["plain", "partial-dp", "topk", "bf16-partial", "int8-dp"])
+def test_one_tile_round_is_bitwise_the_flat_round(codec, partial, dp_noise):
+    """C_tile = C: params, outer lanes, rng, residual rows and every metric
+    bitwise, round after round (dropout, partial progress, DP noise, codecs)."""
+    from repro_torch.tree import params_to_numpy
+
+    flat = _quad_setup(4, codec, partial, dp_noise=dp_noise)
+    tiled = _quad_setup(4, codec, partial, tile=4, dp_noise=dp_noise)
+    for r in range(3):
+        b = _quad_batches(3, 4, seed=30 + r)
+        mf = flat.run_round(b, flat.plan(r))
+        mt = tiled.run_round(b, tiled.plan(r))
+        assert sorted(mf) == sorted(mt)
+        for k in mf:
+            assert float(mf[k]) == float(mt[k]) or (np.isnan(float(mf[k]))
+                                                   and np.isnan(float(mt[k]))), k
+        ff, ft = params_to_numpy(flat.checkpoint()[0]), params_to_numpy(tiled.checkpoint()[0])
+        assert sorted(ff) == sorted(ft)
+        for k in ff:
+            np.testing.assert_array_equal(ff[k], ft[k], err_msg=k)
+        assert flat.checkpoint()[1] == tiled.checkpoint()[1]
+
+
+def test_one_tile_round_is_bitwise_the_flat_round_on_reduced_photon():
+    jagg, tagg, *_ = _round_pair(fused=False, outer="fedavg")
+    _, tiled, *_ = _round_pair(fused=False, outer="fedavg", cohort_tile=2)
+    from repro_torch.tree import params_to_numpy
+
+    a, b = params_to_numpy(tagg.state["params"]), params_to_numpy(tiled.state["params"])
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("robust", [None, "trimmed", "median"])
+def test_three_tile_round_with_a_padded_tile_matches_the_reference(robust):
+    """C = 5 in tiles of 2: the last tile is one client and one padding slot.
+    Params to abs 1e-5 and metrics to rel 1e-4 of the reference's tiled
+    round, as the flat round is held (float32 compute on reduced photon).
+    Two rounds with the weighted mean, one under a robust rule: an order
+    statistic passes one client's float32 noise through unaveraged."""
+    from repro.core.robust import RobustAggConfig as JRobust
+    from repro_torch.core.robust import RobustAggConfig as TRobust
+
+    kw = {}
+    if robust:
+        kw = dict(j_robust=JRobust(rule=robust, trim_fraction=0.2),
+                  t_robust=TRobust(rule=robust, trim_fraction=0.2))
+    jagg, tagg, j_metrics, t_metrics, plan = _round_pair(
+        fused=False, outer="fedmom", cohort_tile=2, clients=5, rounds=1 if robust else 2, **kw)
+    assert len(plan.selected) == 5
+    _assert_round_close(jagg, tagg, j_metrics, t_metrics)
+
+
+def test_apply_aggregate_partial_of_one_tile_is_apply_aggregate_bitwise():
+    from repro_torch.core import apply_aggregate, apply_aggregate_partial, init_federated_state
+    from repro_torch.core.federated import _client_norms
+
+    gen = torch.Generator().manual_seed(3)
+    params = {"a": torch.randn(50, generator=gen), "b": [torch.randn(3, 4, generator=gen)]}
+    deltas = {"a": torch.randn(4, 50, generator=gen) * 1e-2,
+              "b": [torch.randn(4, 3, 4, generator=gen) * 1e-2]}
+    w = torch.tensor([1.0, 0.0, 2.5, 1.0])
+    fed = TFed(clients_per_round=4, local_steps=1, dp_noise=0.1,
+               outer=t_outer.OuterOptConfig(name="fedadam", lr=0.1))
+    state = init_federated_state(fed, params, np.asarray(jax.random.PRNGKey(5)))
+    want, wm = apply_aggregate(fed, state, deltas, client_weights=w)
+    dsum = {"a": torch.sum(deltas["a"] * w[:, None], dim=0),
+            "b": [torch.sum(deltas["b"][0] * w[:, None, None], dim=0)]}
+    got, gm = apply_aggregate_partial(fed, state, dsum, w, _client_norms(deltas))
+    from repro_torch.tree import params_to_numpy
+
+    np.testing.assert_equal(params_to_numpy(got), params_to_numpy(want))
+    assert {k: float(v) for k, v in gm.items()} == {k: float(v) for k, v in wm.items()}
+
+
+def test_combine_tile_metrics_matches_the_reference():
+    from repro.core.federated import combine_tile_metrics as j_combine
+    from repro_torch.core import combine_tile_metrics as t_combine
+
+    rng = np.random.default_rng(9)
+
+    def tile(eff):
+        return {"eff_k": np.float32(eff),
+                "step_metrics": {k: rng.random(3).astype(np.float32)
+                                 for k in ("loss", "grad_norm", "applied_update_norm", "lr")},
+                "client_model_norm_mean": np.float32(rng.random()),
+                "avg_client_model_norm": np.float32(rng.random()),
+                "uplink_residual_norm": np.float32(rng.random())}
+
+    tiles = [tile(2.0), tile(1.0), tile(0.0)]
+    as_t = lambda t: tree_map_t(torch.from_numpy, t)  # noqa: E731
+    for n in (1, 3):
+        want = j_combine([jax.tree_util.tree_map(jnp.asarray, t) for t in tiles[:n]])
+        got = t_combine([as_t(t) for t in tiles[:n]])
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert_close(float(got[k]), float(want[k]), rtol=1e-6, what=k)
+    one = as_t(tiles[0])
+    assert t_combine([one])["client_model_norm_mean"] is one["client_model_norm_mean"]
+
+
+def tree_map_t(fn, tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: fn(np.asarray(x)), tree)
+
+
+@pytest.mark.parametrize("c,groups", [(8, 4), (8, 2), (6, 4), (5, 3), (7, 1)])
+def test_hierarchical_mean_matches_the_reference(c, groups):
+    from repro.core.federated import hierarchical_mean as j_hmean
+    from repro_torch.core import hierarchical_mean as t_hmean
+
+    rng = np.random.default_rng(c * 10 + groups)
+    d = {"a": rng.standard_normal((c, 6)).astype(np.float32),
+         "b": [rng.standard_normal((c, 2, 3)).astype(np.float32)]}
+    w = rng.random(c).astype(np.float32)
+    w[0] = 0.0
+    got = t_hmean(tree_map_t(torch.from_numpy, d), groups, torch.from_numpy(w))
+    assert_trees_close(got, j_hmean(_jtree(d), groups, jnp.asarray(w)), rtol=1e-6, atol=1e-7)
+    if c % groups == 0:
+        got = t_hmean(tree_map_t(torch.from_numpy, d), groups)
+        assert_trees_close(got, j_hmean(_jtree(d), groups), rtol=1e-6, atol=1e-7)
+    else:
+        with pytest.raises(ValueError) as want:
+            j_hmean(_jtree(d), groups)
+        with pytest.raises(ValueError) as err:
+            t_hmean(tree_map_t(torch.from_numpy, d), groups)
+        assert str(err.value) == str(want.value)
+
+
+def test_run_client_tile_refuses_kept_inner_state():
+    from repro_torch.core import run_client_tile
+
+    fed = TFed(clients_per_round=2, local_steps=1, keep_inner_state=True)
+    with pytest.raises(ValueError, match="keep_inner_state=False"):
+        run_client_tile(_quad_t, fed, {}, {}, torch.ones(2))
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_centralized_step_matches_the_reference(tmp_path, grad_accum):
+    """Two steps at float32 compute: params and AdamW lanes to abs 1e-5,
+    metrics to rel 1e-4; the state round-trips through the checkpoint
+    format, and the reference loads the port's file."""
+    from repro.checkpoint.checkpoint import load_pytree as j_load
+    from repro.core import centralized_step as j_step
+    from repro.core import init_centralized_state as j_init
+    from repro_torch.checkpoint.checkpoint import load_pytree, save_pytree
+    from repro_torch.core import centralized_step as t_step
+    from repro_torch.core import init_centralized_state as t_init
+    from repro_torch.tree import params_to_numpy
+
+    jcfg = dataclasses.replace(j_get_config("photon-75m").reduced(), compute_dtype="float32")
+    tcfg = dataclasses.replace(t_get_config("photon-75m").reduced(), compute_dtype="float32")
+    jm, tm = j_build(jcfg), t_build(tcfg)
+    params = jm.init(jax.random.PRNGKey(0))
+    kw = dict(lr_max=1e-3, warmup_steps=1, total_steps=10)
+    jin, tin = j_inner.InnerOptConfig(**kw), t_inner.InnerOptConfig(**kw)
+    js, ts = j_init(jin, params), t_init(tin, jax_to_torch(params))
+    toks = np.random.default_rng(5).integers(0, jcfg.vocab_size, (2, 4, 64)).astype(np.int32)
+    for step in range(2):
+        js, jmet = j_step(lambda p, b: jm.loss(p, b), jin, js, {"tokens": jnp.asarray(toks[step])},
+                          grad_accum=grad_accum)
+        ts, tmet = t_step(tm.loss, tin, ts, {"tokens": torch.from_numpy(toks[step])},
+                          grad_accum=grad_accum)
+        assert ts["step"] == int(js["step"]) == step + 1
+        assert_trees_close(ts["params"], js["params"], atol=1e-5)
+        for lane in ("m", "v"):
+            assert_trees_close(ts["inner"][lane], js["inner"][lane], atol=1e-5)
+        assert ts["inner"]["count"] == int(js["inner"]["count"])
+        assert_metrics_close(tmet, jmet, rtol=1e-4, atol=1e-7)
+    path = str(tmp_path / "central")
+    save_pytree(path, ts)
+    like = t_init(tin, jax_to_torch(params))
+    back = load_pytree(path, like)
+    assert back["step"] == 2 and back["inner"]["count"] == 2
+    np.testing.assert_equal(params_to_numpy(back), params_to_numpy(ts))
+    jback = j_load(path, jax.eval_shape(lambda: j_init(jin, params)))
+    assert_trees_close(ts, jback)

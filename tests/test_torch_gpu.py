@@ -6,7 +6,10 @@ kernels with nvcc first). ``server_apply``, as in ``chip_smoke.py``: params and
 lanes abs 1e-6·max(1, max|p|), norms rel 1e-5, and two launches bitwise
 equal, for cohorts up to 64 clients (chunks of 32). The four codec kernels:
 bitwise equal to their plain versions, ties, signed zeros, half-quanta and
-non-finite values included; the async driver launches each fedcore kernel
+non-finite values included (int8_dequant also with a NaN, +inf or ×64 scale
+plane; server_apply on a NaN, +inf or ×64 lane, NaN at weight 0 included:
+non-finite values at the plain version's positions); a one-tile round is
+bitwise the flat round; the async driver launches each fedcore kernel
 exactly as often as it counts flushes, client phases and admissions. The SSD
 scan, flash attention and flash decode: y within one bf16 ulp of the plain
 version (f32: 1e-5·max|y|). RMSNorm: bf16 within one bf16 ulp, f32 within
@@ -174,6 +177,75 @@ def test_cuda_int8_quant_and_dequant_match_plain_bitwise():
     assert torch.equal(q, K.int8_quant_plain(x, scales, offsets))
     assert torch.equal(out.view(torch.int32),
                        K.int8_dequant_plain(q, scales, offsets).view(torch.int32))
+
+
+def _hold_nonfinite(got, want, atol=0.0, rtol=0.0):
+    """NaN and ±inf (with its sign) at the same positions; finite values
+    within atol + rtol·|want|."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    assert bool(((got[fin] - want[fin]).abs() <= atol + rtol * want[fin].abs()).all())
+
+
+@pytest.mark.parametrize("kind,weights", [("nan", (1.0, 1.0)), ("inf", (1.0, 1.0)),
+                                          ("x64", (1.0, 1.0)), ("nan", (1.0, 0.0))],
+                         ids=["nan", "inf", "x64", "nan-weight-0"])
+def test_cuda_server_apply_on_a_poisoned_lane_matches_plain(kind, weights):
+    """A buffer that admitted a Byzantine delta: 0·NaN = NaN, so a NaN lane
+    at weight 0 poisons the update in the plain version, and must in the
+    kernel too (a kernel that skipped a zero-weight lane would hide it)."""
+    _need_cuda()
+    d, _, p, _, _ = _inputs("fedavg", 2, 8192 * 5 + 4 * 17, seed=11)
+    d[1] = d[1] * 64.0 if kind == "x64" else torch.full_like(
+        d[1], float("nan") if kind == "nan" else float("inf"))
+    w = torch.tensor(weights, device="cuda")
+    outs = []
+    for fn in (K.server_apply, K.server_apply_plain):
+        pp = p.clone()
+        norms = fn(d, w / w.sum(), pp, [], opt="fedavg", lr=1.0)
+        torch.cuda.synchronize()
+        outs.append((pp, torch.stack([norms[0], norms[1], *norms[2]])))
+    (pk, nk), (pp, npl) = outs
+    fin = torch.isfinite(pp)
+    _hold_nonfinite(pk, pp, atol=1e-6 * max(1.0, float(pp[fin].abs().max()) if bool(fin.any())
+                                            else 1.0))
+    _hold_nonfinite(nk, npl, rtol=1e-5)
+    if kind != "x64":
+        assert not bool(torch.isfinite(pk).any())
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf", "x64"])
+def test_cuda_int8_dequant_of_a_poisoned_scale_plane_is_bitwise_plain(kind):
+    _need_cuda()
+    x, scales, offsets = _int8_case(torch.Generator(device="cuda").manual_seed(5))
+    q = K.int8_quant(x, scales, offsets)
+    s = scales * 64.0 if kind == "x64" else torch.full_like(
+        scales, float("nan") if kind == "nan" else float("inf"))
+    got = K.int8_dequant(q, s.contiguous(), offsets)
+    want = K.int8_dequant_plain(q, s.contiguous(), offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_cuda_one_tile_round_is_bitwise_the_flat_round():
+    """Reduced photon-75m on the card: K = 4 in one tile of 4 against the
+    flat round, two rounds, loss and params bitwise; no kernel launches."""
+    _need_cuda()
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_leaves
+
+    base = ["--reduced", "--rounds", "2", "--local-steps", "2", "--clients", "4",
+            "--population", "8", "--seq-len", "64", "--device", "cuda"]
+    counts = {n: f.launches for n, f in K.KERNELS.items()}
+    flat = T.run(T.parse_args(base))
+    tiled = T.run(T.parse_args(base + ["--cohort-tile", "4"]))
+    assert counts == {n: f.launches for n, f in K.KERNELS.items()}
+    assert [r["train_loss"] for r in flat["history"]] == \
+        [r["train_loss"] for r in tiled["history"]]
+    for a, b in zip(tree_leaves(flat["state"]["params"]), tree_leaves(tiled["state"]["params"])):
+        assert torch.equal(a, b)
 
 
 def test_cuda_codec_wrappers_refuse_instead_of_falling_back():

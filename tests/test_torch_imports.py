@@ -74,6 +74,7 @@ def test_source_imports_neither_jax_nor_repro(path):
     "repro_torch.kernels.rmsnorm", "repro_torch.kernels.rmsnorm.kernel",
     "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.rmsnorm.ref",
     "repro_torch.core.async_agg", "repro_torch.core.aggregator", "repro_torch.core.sampler",
+    "repro_torch.core.robust", "repro_torch.core.federated", "repro_torch.launch.train",
 ])
 def test_serving_slice_modules_are_among_the_scanned(module):
     assert module in {_module_name(p) for p in SOURCES if p.suffix == ".py" and PKG in p.parents}
