@@ -105,6 +105,29 @@ Phases, one JSON line each:
                 launch counts held to AsyncFederationDriver's counters; finite params
   centralized   8 centralized_step calls at photon-75m full width on a global
                 batch of 16 x 128 tokens: tokens/s and peak device memory
+  train_governed
+                --aggregation async --fused-server --straggler-profile heavy
+                --control staleness --control-target 0.5 --rounds 5, float32
+                and int8: per update the buffer size M, alpha and the width C
+                of its server_apply launch (M = 2, 1, 2, 4, 4, as on the
+                CPU); launches held to the driver's counters; server_apply
+                held to its plain version at every width the run gave it
+  train_cohort  sync --fused-server --straggler-profile heavy --deadline 4
+                --dropout-rate 0.2 --control cohort --control-target 0.95
+                --local-steps 4 --rounds 4: K per round and server_apply's C
+                (4, 6, 8, 8), each width held as above; then --control
+                static bitwise the run without the flag (rows and params)
+  train_sockets the async path over --runtime sockets at full width, float32
+                and int8: the CLI's server on the main thread and two worker
+                threads, bitwise the in-process run (rows but the wall clock,
+                and params); per update the wall seconds, the wire bytes each
+                way, the server's framing seconds (CRC and copies) and device
+                memory; int8_quant once per executed assignment, int8_dequant
+                once per admission, server_apply once per flush; then one
+                real run of three processes (``chip_smoke.py --cli-process``:
+                a server and two workers through the CLI, each with a
+                timeout, each reporting its peak device memory and framing
+                seconds), whose last row equals the in-process CLI's
   serve         full-width mamba2-1.3b (48 layers, random weights from seed 0):
                 ``Model.prefill(use_pallas=True)`` at B = 4, S = 2048 against
                 ``use_pallas=False`` on the card (float32 compute: held to a
@@ -131,7 +154,10 @@ Phases, one JSON line each:
                 (``byzantine_launches``) and the kernel's numbers at the async
                 path's shape (``async_case``: C = 2 or C = 1);
                 ``server_apply`` and ``int8_dequant`` list their poisoned
-                cases (``poisoned_cases``)
+                cases (``poisoned_cases``); the fedcore entries add the
+                governed, cohort and socket runs' launches, and
+                ``server_apply`` the widths the controller picked with each
+                width's kernel / plain / bound times (``width_cases``)
 
 No model path launches flash_decode or rmsnorm (none does in the JAX package
 either): the train and serve phases hold their counts at 0, and their
@@ -142,6 +168,7 @@ non-zero; without a CUDA device the script exits 2 before printing a result.
 """
 from __future__ import annotations
 
+import csv
 import dataclasses
 import gc
 import json
@@ -230,6 +257,22 @@ BYZANTINE_ARGS = ["--aggregation", "async", "--fused-server", "--straggler-profi
 #: the updates the reference CLI rolls back on the CPU (--reduced) with these flags
 BYZANTINE_ROLLED_BACK = [0.0, 0.0, 0.0, 1.0, 0.0, 0.0]
 CENTRAL_STEPS, CENTRAL_BATCH, CENTRAL_SEQ = 8, 16, 128  # K·B rows of the default round
+#: train_governed: the staleness governor at the launcher's defaults (K = 4, M = 2)
+GOVERNED_ARGS = ["--arch", "photon-75m", "--aggregation", "async", "--fused-server",
+                 "--straggler-profile", "heavy", "--control", "staleness",
+                 "--control-target", "0.5", "--staleness-alpha", "0.5", "--rounds", "5"]
+#: the buffer sizes M it flushes at: the timeline and the governor are pure in
+#: (config, seed), so the CPU run of the reference CLI gives these too
+GOVERNED_WIDTHS = [2, 1, 2, 4, 4]
+#: train_cohort: the cohort tuner with the deadline at its cap, so it moves K
+COHORT_STATIC_ARGS = ["--arch", "photon-75m", "--fused-server", "--straggler-profile", "heavy",
+                      "--deadline", "4", "--dropout-rate", "0.2", "--local-steps", "4",
+                      "--rounds", "2"]
+COHORT_ARGS = COHORT_STATIC_ARGS[:-1] + ["4", "--control", "cohort", "--control-target", "0.95"]
+COHORT_WIDTHS = [4, 6, 8, 8]  # K per round (the reference CLI's on the CPU)
+#: train_sockets: the async path over the socket runtime (τ = 8, K = 4, M = 2)
+SOCKETS_ARGS = ["--arch", "photon-75m", "--aggregation", "async", "--fused-server",
+                "--straggler-profile", "heavy", "--rounds", "3"]
 #: (kernel, the --uplink that runs it, line of the TPU kernel, why no library call)
 CODEC_KERNELS = (
     ("topk_mask_ef", "topk", 236,
@@ -942,6 +985,348 @@ def phase_centralized() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return r
+
+
+# ---------------------------------------------------------------------------
+# The deployment layer: controller-picked widths and the socket runtime
+# ---------------------------------------------------------------------------
+
+
+class _Widths:
+    """Records the cohort width C of every ``fused_apply_aggregate`` call
+    (one ``server_apply`` launch each on the card) while installed."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import repro_torch.kernels.fedcore as F
+        from repro_torch.tree import tree_leaves
+
+        self._F, self._orig = F, F.fused_apply_aggregate
+
+        def recorded(fed, state, deltas, client_weights=None, codec=None):
+            self.calls.append(int(tree_leaves(deltas)[0].shape[0]))
+            return self._orig(fed, state, deltas, client_weights=client_weights, codec=codec)
+
+        F.fused_apply_aggregate = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._F.fused_apply_aggregate = self._orig
+
+
+def _widths_held(widths, phase: str, gen) -> dict:
+    """``server_apply`` against its plain version at every width a run gave it."""
+    import torch
+
+    out = {}
+    for C in sorted(set(widths)):
+        r = _server_apply_case("fedavg", False, gen, C=C)
+        out[C] = {k: r[k] for k in ("C", "max_abs_err_params", "max_rel_err_norms",
+                                    "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+        emit(phase, server_apply_held=out[C])
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_governed(uplink: str) -> dict:
+    """photon-75m's async path with ``--control staleness``: the governor
+    resizes the buffer M on powers of two (``GOVERNED_WIDTHS``), so each
+    flush's ``server_apply`` runs at the width it picked; every width is held
+    to the plain version, and the launches to the driver's counters."""
+    import torch
+    from repro_torch.core.aggregator import ASYNC_KERNEL_COUNTERS
+    from repro_torch.tree import tree_leaves
+
+    with _Widths() as w:
+        out, launches, seconds, peak = _run_counted(GOVERNED_ARGS + ["--uplink", uplink])
+    drv = out["driver"]
+    counts = {"n_flushes": drv.n_flushes, "n_client_phases": drv.n_client_phases,
+              "n_admissions": drv.n_admissions}
+    alpha = float(GOVERNED_ARGS[GOVERNED_ARGS.index("--staleness-alpha") + 1])
+    for row, C in zip(out["history"], w.calls):
+        emit("train_governed", uplink=uplink, update=row["update"], M=C, alpha=alpha,
+             server_apply_C=C, buffer_fill=row["buffer_fill"],
+             staleness_mean=row["staleness_mean"], staleness_max=row["staleness_max"],
+             knob_buffer_size=row.get("knob_buffer_size"),
+             knob_staleness_alpha=row.get("knob_staleness_alpha"), seconds=row["seconds"],
+             loss=row["train_loss"], val_ppl=row["val_ppl"])
+        alpha = row.get("knob_staleness_alpha", alpha)
+    leaves = tree_leaves(out["state"]["params"])
+    r = {"uplink": uplink, "widths": w.calls, "launches": launches, **counts,
+         "control_history": drv.controller.history, "total_seconds": seconds,
+         "peak_mem_GB": peak / 1e9}
+    emit("train_governed", **r)
+    assert w.calls == GOVERNED_WIDTHS, (uplink, w.calls)
+    assert all(bool(torch.isfinite(x).all()) for x in leaves), "non-finite params"
+    assert all(math.isfinite(row["train_loss"]) for row in out["history"])
+    counters = ASYNC_KERNEL_COUNTERS[uplink]
+    want = {name: counts[counters[name]] if name in counters else 0 for name in launches}
+    assert launches == want and counts["n_flushes"] == len(w.calls), (uplink, launches, want)
+    del out, drv
+    gc.collect()
+    r["held"] = _widths_held(w.calls, "train_governed",
+                             torch.Generator(device="cuda").manual_seed(11))
+    return r
+
+
+def phase_train_cohort() -> dict:
+    """photon-75m's sync path with ``--control cohort``: the tuner widens K
+    (``COHORT_WIDTHS``), so each round's ``server_apply`` runs at the K it
+    picked; every width is held to the plain version. Then ``--control
+    static`` is bitwise the run without the flag on this card."""
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    with _Widths() as w:
+        out, launches, seconds, peak = _run_counted(COHORT_ARGS)
+    hist = out["history"]
+    for row, C in zip(hist, w.calls):
+        emit("train_cohort", round=row["round"], K=len(row["selected"].split(",")),
+             server_apply_C=C, effective_k=row["effective_k"],
+             knob_clients_per_round=row.get("knob_clients_per_round"),
+             knob_deadline=row.get("knob_deadline"), seconds=row["seconds"],
+             loss=row["train_loss"], val_ppl=row["val_ppl"])
+    r = {"widths": w.calls, "launches": launches, "total_seconds": seconds,
+         "peak_mem_GB": peak / 1e9,
+         "control_history": out["aggregator"].controller.history}
+    emit("train_cohort", **r)
+    assert w.calls == COHORT_WIDTHS, w.calls
+    assert launches == {name: len(hist) if name == "server_apply" else 0 for name in launches}
+    assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(out["state"]["params"]))
+    del out
+    gc.collect()
+    # --control static against no flag, two rounds each: rows and params bitwise
+    static = []
+    for extra in (["--control", "static"], []):
+        o, _, _, _ = _run_counted(COHORT_STATIC_ARGS + extra)
+        static.append(([{k: v for k, v in row.items() if k != "seconds"} for row in o["history"]],
+                       [x.cpu() for x in tree_leaves(o["state"]["params"])]))
+        del o
+    same = static[0][0] == static[1][0] and all(
+        torch.equal(a, b) for a, b in zip(static[0][1], static[1][1]))
+    r["static_bitwise_uncontrolled"] = same
+    emit("train_cohort", static_bitwise_uncontrolled=same)
+    assert same, "--control static differs from the uncontrolled run"
+    del static
+    gc.collect()
+    r["held"] = _widths_held(w.calls, "train_cohort",
+                             torch.Generator(device="cuda").manual_seed(12))
+    return r
+
+
+def _quick_worker():
+    """``ClientWorker`` that gives up 5 s after losing its server (the CLI's
+    default waits a minute): a worker still training an in-flight slot when
+    the run ends finds the server gone."""
+    from repro_torch.runtime import Backoff, ClientWorker
+
+    class QuickWorker(ClientWorker):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, backoff=Backoff(give_up_after=5.0), **kw)
+
+    return QuickWorker
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _socket_run(uplink: str, port: int) -> dict:
+    """The socket runtime in this process: the CLI's ``--role server`` on the
+    main thread and two ``--role client`` workers on threads, all on the
+    card. The server's backend and driver are instrumented subclasses that
+    read, at each flush, the wall clock, the wire bytes each way, the host
+    seconds spent framing and the device memory."""
+    import threading
+
+    import torch
+    from repro_torch.launch import train as T
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime import FederationDriver, SocketBackend
+
+    per_update = []
+
+    class Backend(SocketBackend):
+        def __init__(self, *a, tracer=None, **kw):  # a tracer for the byte counters
+            super().__init__(*a, tracer=tracer or Tracer(proc="server"), **kw)
+
+    class Driver(FederationDriver):
+        def _flush_row(self, flush_metrics, deadline=False):
+            row = super()._flush_row(flush_metrics, deadline)
+            c = self.backend.tracer.snapshot()["counters"]
+            per_update.append({"bytes_tx": c.get("bytes_tx", 0.0),
+                               "bytes_rx": c.get("bytes_rx", 0.0),
+                               "frame_s": self.backend.clock.seconds,
+                               "mem_GB": torch.cuda.memory_allocated() / 1e9})
+            return row
+
+    base = SOCKETS_ARGS + ["--uplink", uplink, "--runtime", "sockets", "--port", str(port)]
+    workers = {}
+
+    def work(name):
+        workers[name] = T.run(T.parse_args(base + ["--role", "client", "--worker-id", name,
+                                                    "--device", "cuda", "--io-timeout", "120"]))
+
+    saved = T.SocketBackend, T.FederationDriver, T.ClientWorker
+    T.SocketBackend, T.FederationDriver, T.ClientWorker = Backend, Driver, _quick_worker()
+    threads = [threading.Thread(target=work, args=(f"w{i}",), daemon=True) for i in range(2)]
+    try:
+        for t in threads:
+            t.start()  # they back off until the server listens
+        out, _, seconds, peak = _run_counted(base + ["--role", "server"])
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads), "a worker thread did not finish"
+        # read after the workers finished: a worker may still encode an
+        # in-flight slot after the server's last update
+        launches = read_launches()
+    finally:
+        T.SocketBackend, T.FederationDriver, T.ClientWorker = saved
+    prev = {"bytes_tx": 0.0, "bytes_rx": 0.0, "frame_s": 0.0}
+    rows = []
+    for row, u in zip(out["history"], per_update):
+        rows.append({"update": row["update"], "wall_s": row["seconds"],
+                     "server_to_workers_bytes": u["bytes_tx"] - prev["bytes_tx"],
+                     "workers_to_server_bytes": u["bytes_rx"] - prev["bytes_rx"],
+                     "server_frame_s": u["frame_s"] - prev["frame_s"],
+                     "device_mem_GB": u["mem_GB"]})
+        prev = u
+    return {"out": out, "launches": launches, "seconds": seconds, "peak": peak,
+            "per_update": rows,
+            "workers": {n: {"completed": r["completed"],
+                            "client_phases": r["worker"].n_client_phases,
+                            "frame_s": r["worker"].clock.seconds} for n, r in workers.items()}}
+
+
+def _cli_processes(uplink: str, ck: str) -> dict:
+    """One ``--role server`` and two ``--role client`` processes of this
+    script's ``--cli-process`` mode, each with a timeout; returns their
+    reports (peak device memory, framing seconds, launches)."""
+    port = _free_port()
+    base = SOCKETS_ARGS + ["--uplink", uplink, "--runtime", "sockets", "--port", str(port),
+                           "--device", "cuda"]
+    cmds = {"server": base + ["--role", "server", "--log", os.path.join(ck, "sockets.csv")]}
+    for i in range(2):
+        cmds[f"w{i}"] = base + ["--role", "client", "--worker-id", f"w{i}", "--io-timeout", "120"]
+    procs = {name: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cli-process"]
+                                    + argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True, cwd=ROOT)
+             for name, argv in cmds.items()}
+    reports, logs = {}, {}
+    try:
+        for name in ("server", "w0", "w1"):
+            logs[name], _ = procs[name].communicate(timeout=300 if name == "server" else 60)
+            assert procs[name].returncode == 0, (name, logs[name][-3000:])
+            line = [l for l in logs[name].splitlines() if l.startswith("CLI_PROCESS ")][-1]
+            reports[name] = json.loads(line[len("CLI_PROCESS "):])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return reports
+
+
+def cli_process(argv) -> int:
+    """``chip_smoke.py --cli-process ARGS``: ``repro_torch.launch.train`` with
+    ARGS in this process, then one ``CLI_PROCESS {json}`` line: its peak
+    device memory, framing seconds and kernel launches."""
+    import torch
+    from repro_torch.launch import train as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    T.ClientWorker = _quick_worker()
+    out = T.run(T.parse_args(argv))
+    r = {"peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9, "launches": read_launches()}
+    if "worker" in out:
+        r.update(completed=out["completed"], client_phases=out["worker"].n_client_phases,
+                 frame_s=out["worker"].clock.seconds)
+    else:
+        drv = out["driver"]
+        r.update(updates=len(out["history"]), frame_s=drv.backend.clock.seconds,
+                 n_flushes=drv.n_flushes, n_admissions=drv.n_admissions)
+    print("CLI_PROCESS " + json.dumps(r), flush=True)
+    return 0
+
+
+def phase_train_sockets() -> dict:
+    """photon-75m's async path over the socket runtime at full width, float32
+    and int8: bitwise the in-process ``AsyncFederationDriver`` run from the
+    same seeds (every row but the wall clock, and the final params), the
+    launches held (``int8_quant`` once per executed assignment on the
+    workers, ``int8_dequant`` once per admission and ``server_apply`` once per
+    flush on the server); then one real run of three processes through the
+    CLI, whose last row is the in-process CLI's."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    results = {}
+    ck = tempfile.mkdtemp(prefix="chip_smoke_sockets_")
+    try:
+        for uplink in ("float32", "int8"):
+            ref, ref_launches, ref_s, ref_peak = _run_counted(
+                SOCKETS_ARGS + ["--uplink", uplink, "--log", os.path.join(ck, f"in_{uplink}.csv")])
+            ref_rows = [{k: v for k, v in row.items() if k != "seconds"} for row in ref["history"]]
+            ref_params = [x.cpu() for x in tree_leaves(ref["state"]["params"])]
+            ref_seconds = [row["seconds"] for row in ref["history"]]
+            del ref
+            gc.collect()
+            torch.cuda.empty_cache()
+            s = _socket_run(uplink, _free_port())
+            drv = s["out"]["driver"]
+            rows = [{k: v for k, v in row.items() if k != "seconds"} for row in s["out"]["history"]]
+            params = [x.cpu() for x in tree_leaves(s["out"]["state"]["params"])]
+            bitwise = rows == ref_rows and all(torch.equal(a, b)
+                                               for a, b in zip(params, ref_params))
+            executed = sum(w["client_phases"] for w in s["workers"].values())
+            for u, r in enumerate(s["per_update"]):
+                emit("train_sockets", uplink=uplink, **r, inproc_seconds=ref_seconds[u])
+            r = {"uplink": uplink, "bitwise_vs_inproc": bitwise, "launches": s["launches"],
+                 "inproc_launches": ref_launches, "n_flushes": drv.n_flushes,
+                 "n_admissions": drv.n_admissions, "executed_assignments": executed,
+                 "workers": s["workers"], "server_frame_s": drv.backend.clock.seconds,
+                 "total_seconds": s["seconds"], "inproc_total_seconds": ref_s,
+                 "peak_mem_GB_server_and_workers": s["peak"] / 1e9,
+                 "inproc_peak_mem_GB": ref_peak / 1e9}
+            emit("train_sockets", **r)
+            assert bitwise, (uplink, "the socket run differs from the in-process run")
+            want = {name: 0 for name in s["launches"]}
+            want["server_apply"] = drv.n_flushes
+            if uplink == "int8":
+                want["int8_quant"], want["int8_dequant"] = executed, drv.n_admissions
+            assert s["launches"] == want, (uplink, s["launches"], want)
+            results[uplink] = r
+            del s, drv, params, ref_params
+            gc.collect()
+            torch.cuda.empty_cache()
+        reports = _cli_processes("int8", ck)
+        with open(os.path.join(ck, "sockets.csv")) as f:
+            got = list(csv.DictReader(f))[-1]
+        with open(os.path.join(ck, "in_int8.csv")) as f:
+            want = list(csv.DictReader(f))[-1]
+        same = {k: got[k] == want[k] for k in want if k != "seconds"}
+        emit("train_sockets", processes=reports, last_row_equal=all(same.values()))
+        assert all(same.values()), [k for k, v in same.items() if not v]
+        assert reports["server"]["launches"]["server_apply"] == reports["server"]["n_flushes"]
+        assert reports["server"]["launches"]["int8_dequant"] == reports["server"]["n_admissions"]
+        for name in ("w0", "w1"):
+            assert reports[name]["launches"]["int8_quant"] == reports[name]["client_phases"]
+        results["processes"] = reports
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    return results
 
 
 def async_update_parts(drv, out, args) -> dict:
@@ -1733,6 +2118,9 @@ def main() -> int:
         return 2
     from repro_torch.core.aggregator import ASYNC_KERNEL_COUNTERS  # fails outside a checkout
 
+    if sys.argv[1:2] == ["--cli-process"]:  # one process of train_sockets' CLI run
+        return cli_process(sys.argv[2:])
+
     # float32 products in full float32 (the plain versions' and the checks' numerics)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1753,6 +2141,9 @@ def main() -> int:
     phase_train_tiled()
     byz_launches = {uplink: phase_train_byzantine(uplink) for uplink in ("float32", "int8")}
     phase_centralized()
+    governed = {uplink: phase_train_governed(uplink) for uplink in ("float32", "int8")}
+    cohort = phase_train_cohort()
+    sockets = phase_train_sockets()
     mamba2 = phase_serve_mamba2()
     phase_serve_photon()
     whisper = phase_serve_whisper()
@@ -1783,6 +2174,15 @@ def main() -> int:
         "poisoned_cases": [{k: r[k] for k in ("case", "C", "weights", "max_abs_err")}
                            | {"nan": r["params"]["nan"], "inf": r["params"]["inf"]}
                            for r in sa["poisoned"]],
+        # the controller-picked widths: launches per run, and each width held
+        "governed_launches": {u: g["launches"]["server_apply"] for u, g in governed.items()},
+        "governed_widths": governed["float32"]["widths"],
+        "cohort_launches": cohort["launches"]["server_apply"],
+        "cohort_widths": cohort["widths"],
+        "width_cases": [governed["float32"]["held"][C] for C in sorted(governed["float32"]["held"])]
+        + [cohort["held"][C] for C in sorted(cohort["held"])],
+        "socket_launches": {u: sockets[u]["launches"]["server_apply"]
+                            for u in ("float32", "int8")},
     }]
     for name, uplink, line, note in CODEC_KERNELS:
         r = codecs[COHORT][name]
@@ -1796,6 +2196,9 @@ def main() -> int:
             "async_case": async_case(codecs[ASYNC_COHORT][name]),
             "byzantine_launches": byz_launches["int8"][name],
         })
+        if uplink == "int8":
+            kernels[-1]["governed_launches"] = governed["int8"]["launches"][name]
+            kernels[-1]["socket_launches"] = sockets["int8"]["launches"][name]
         if name == "int8_dequant":
             kernels[-1]["poisoned_cases"] = [
                 {"case": r["case"], "C": r["C"], "bitwise": r["bitwise"], "ms": r["kernel_ms"],

@@ -34,7 +34,16 @@ buffer is bounded by the tile. ``robust=`` (``core/robust``) installs a
 robust rule or the delta screen at the server phase's ``apply_fn`` seam (a
 per-tile order-statistic fold under tiling), keeps the quarantine table and
 the divergence guard's state in ``manifest["robust"]``, and screens the async
-door. The control loop and tracing are not ported (ROADMAP.md).
+door.
+
+``tracer`` (``obs/``) records round, dispatch, admission and flush events at
+the reference's sites; it only reads host floats the metrics path already
+made, so a traced run is bitwise the untraced one. ``controller``
+(``control/``) closes the loop: :meth:`Aggregator.control_step` feeds each
+round or flush row to it and applies the :class:`~repro_torch.control.
+KnobUpdate` it returns at that boundary — the cohort size and deadline
+(sync) or the staleness exponent and the buffer size (async), so the fedcore
+kernels run at the widths it picks. Its state rides ``manifest["control"]``.
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ import torch
 from repro_torch.checkpoint.checkpoint import TensorSpec
 from repro_torch.core.async_agg import (
     AsyncAggConfig,
+    admission_record,
     admit_delta,
     flush_buffer,
     init_async_state,
@@ -67,6 +77,7 @@ from repro_torch.core.federated import (
     run_client_tile,
     run_clients,
     tile_rng,
+    trace_attrs,
 )
 from repro_torch.core.robust import (
     RobustAggConfig,
@@ -85,6 +96,8 @@ from repro_torch.core.sampler import (
     ParticipationPlan,
     plan_round,
 )
+from repro_torch.obs.metrics import observe_staleness
+from repro_torch.obs.tracer import get_tracer
 from repro_torch.tree import clone, global_norm, tree_leaves, tree_map
 
 #: version tag of the checkpoint schema, shared with the reference
@@ -102,12 +115,48 @@ def partial_progress_weights(weights, local_steps, tau: int) -> np.ndarray:
 
 
 class Aggregator:
-    """Base of the seam: the kind, the schema version and the manifest check."""
+    """Base of the seam: the kind, the schema version, the manifest check and
+    the control step."""
 
     kind = "base"
+    #: an optional :class:`repro_torch.control.FederationController`; None (or
+    #: a static one) leaves every path bitwise the uncontrolled run
+    controller = None
 
     def checkpoint(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         raise NotImplementedError
+
+    def apply_knobs(self, update) -> None:
+        """Apply a :class:`~repro_torch.control.KnobUpdate` at a round or
+        flush boundary."""
+        raise NotImplementedError
+
+    def control_step(self, row: Dict[str, Any]):
+        """Feed one boundary row to the controller and apply what it returns;
+        a no-op without an active controller. Returns the applied update or
+        None."""
+        c = self.controller
+        if c is None or not c.enabled:
+            return None
+        update = c.observe(row)
+        if update is None:
+            return None
+        self.apply_knobs(update)
+        self._trace_knob_update(update)
+        return update
+
+    def _trace_knob_update(self, update) -> None:
+        """The applied update as a ``knob_update`` instant with its evidence,
+        and the ``control_*`` gauges."""
+        t = self.tracer
+        if not t.enabled:
+            return
+        attrs: Dict[str, Any] = {f"knob_{k}": v for k, v in update.knob_dict().items()}
+        attrs.update({f"evidence_{k}": v for k, v in update.evidence.items()})
+        t.point("knob_update", parent=getattr(self, "_round_span", None), **attrs)
+        t.count("knob_updates")
+        for k, v in self.controller.knobs().items():
+            t.gauge(f"control_{k}", float(v))
 
     @staticmethod
     def validate_manifest(manifest: Dict[str, Any], kind: str) -> None:
@@ -152,7 +201,11 @@ class SyncAggregator(Aggregator):
         codec: Optional[Codec] = None,
         cohort_tile: Optional[int] = None,
         robust: Optional[RobustAggConfig] = None,
+        tracer=None,
+        controller=None,
     ):
+        self.tracer = get_tracer(tracer)
+        self.controller = controller
         if robust is not None and robust.active and fused_server:
             raise ValueError(
                 "--fused-server is a plain weighted-mean flat-buffer pass and "
@@ -220,6 +273,32 @@ class SyncAggregator(Aggregator):
         else:
             self.restore(state, None)
 
+    def apply_knobs(self, update) -> None:
+        """Apply a sync update between rounds: the deadline is a planning
+        scalar; a new ``clients_per_round`` moves the participation and the
+        federated configs together, so the next round (and its fused
+        ``server_apply``) runs at that cohort width."""
+        if update.staleness_alpha is not None or update.buffer_size is not None:
+            raise ValueError(
+                "sync aggregator has no async knobs (staleness_alpha/"
+                "buffer_size belong to --aggregation async)"
+            )
+        if update.deadline is not None:
+            self.pcfg = replace(
+                self.pcfg,
+                straggler=replace(self.pcfg.straggler, deadline=float(update.deadline)),
+            )
+        if update.clients_per_round is not None:
+            k = int(update.clients_per_round)
+            if self.fed.keep_inner_state:
+                raise ValueError(
+                    "cohort control cannot resize the keep_inner_state lanes "
+                    "(the persisted inner optimizer state is (K, ...)-shaped) "
+                    "— drop --keep-opt or use --control static"
+                )
+            self.pcfg = replace(self.pcfg, clients_per_round=k)
+            self.fed = replace(self.fed, clients_per_round=k)
+
     # --- (a) admission ---------------------------------------------------
     def plan(self, round_idx: int) -> ParticipationPlan:
         """The round's admission decisions — pure in (cfg, seed, r)."""
@@ -244,8 +323,12 @@ class SyncAggregator(Aggregator):
         Quarantined clients weigh 0 this round (nothing is touched while the
         table is empty). With the screen, the flagged clients are counted and
         quarantined, and ``screen_mask`` leaves the metrics."""
+        t = self.tracer
         rs = self.robust_state
         rid = int(self.state["round"])
+        if t.enabled:
+            t.begin("round", span_id=f"r{rid}", round=rid,
+                    effective_k=float(plan.effective_k), track=0)
         w = self.round_weights(plan)
         if rs is not None and rs.quarantine:
             q = np.asarray([rs.is_quarantined(int(c), rid) for c in np.asarray(plan.selected)])
@@ -264,6 +347,17 @@ class SyncAggregator(Aggregator):
                 cids = [int(sel[i]) for i in flagged]
                 rs.note_screen_rejects(len(cids))
                 rs.add_quarantine(cids, rid)
+                if t.enabled:
+                    for cid in cids:
+                        t.point("screen_reject", parent=f"r{rid}", client=cid, round=rid)
+                        t.count("screen_rejects")
+        if t.enabled:
+            attrs = trace_attrs(metrics)  # the one device read tracing pays
+            t.end(f"r{rid}", **attrs)
+            t.count("rounds")
+            t.gauge("round", rid + 1)
+            for k, v in attrs.items():
+                t.gauge(k, v)
         return metrics
 
     def _run_round_flat(self, batches, plan: ParticipationPlan, w: np.ndarray
@@ -388,6 +482,9 @@ class SyncAggregator(Aggregator):
             # sized without reading the npz
             manifest["uplink_ids"] = self.residual_store.ids()
             tree["uplink_residuals"] = tree_map(_host_copy, self.residual_store.stacked())
+        if self.controller is not None and self.controller.enabled:
+            # absent for static/None: the uncontrolled manifest is unchanged
+            manifest["control"] = self.controller.state_dict()
         if self.robust_state is not None:
             # absent when the defense is off: the undefended manifest is unchanged
             manifest["robust"] = self.robust_state.state_dict()
@@ -531,6 +628,8 @@ class AsyncBufferAggregator(Aggregator):
         dispatch: Optional[Dict[str, Any]] = None,
         fused_server: bool = False,
         robust: Optional[RobustAggConfig] = None,
+        tracer=None,
+        controller=None,
     ):
         self.fed = fed
         self.acfg = acfg
@@ -538,6 +637,8 @@ class AsyncBufferAggregator(Aggregator):
         self.codec = codec
         self.seed = seed
         self.fused_server = fused_server
+        self.tracer = get_tracer(tracer)
+        self.controller = controller
         if robust is not None and robust.active and fused_server:
             raise ValueError(
                 "--fused-server is a plain weighted-mean flat-buffer pass and "
@@ -620,6 +721,12 @@ class AsyncBufferAggregator(Aggregator):
         self.n_flushes = 0  # non-empty flushes (one server_apply each when fused)
         self.n_admissions = 0  # uploads that reached the door (one decode each)
         self.n_client_phases = 0  # client phases run (one codec encode each)
+        # the server's round span: dispatch spans of version v parent into
+        # "u{v}"; _trace_flush rotates it when a flush bumps the version
+        self._round_span = f"u{int(self.state['round'])}" if self.tracer.enabled else None
+        if self.tracer.enabled:
+            self.tracer.begin("round", span_id=self._round_span,
+                              round=int(self.state["round"]), track=0)
         if dispatch is not None:
             if self.robust_state is not None and "robust" in dispatch:
                 # a manifest without the key restores a clean slate
@@ -632,6 +739,46 @@ class AsyncBufferAggregator(Aggregator):
     @property
     def device(self) -> torch.device:
         return tree_leaves(self.state["params"])[0].device
+
+    def apply_knobs(self, update) -> None:
+        """Apply an async update at a flush boundary: ``staleness_alpha``
+        changes the door's discount; ``buffer_size`` reallocates the buffer
+        lanes at the new M, which is sound only while the buffer is empty
+        (every flush drains it, and :meth:`control_step` runs in
+        :meth:`_flush_row`). The fused flush packs the lanes afresh at each
+        call, so its next ``server_apply`` runs at the new width. The dispatch
+        timeline is pure in ``(pcfg, seed)`` and neither knob touches it."""
+        if update.clients_per_round is not None or update.deadline is not None:
+            raise ValueError(
+                "async control drives staleness_alpha/buffer_size only: the "
+                "dispatch timeline is pure in (participation config, seed) "
+                "and cannot change mid-run (cohort/deadline are sync knobs)"
+            )
+        acfg = self.acfg
+        if update.staleness_alpha is not None:
+            acfg = replace(acfg, staleness_alpha=float(update.staleness_alpha))
+        if update.buffer_size is not None and int(update.buffer_size) != acfg.buffer_size:
+            if int(self.state["buf_count"]) != 0:
+                raise RuntimeError(
+                    f"buffer resize with {int(self.state['buf_count'])} "
+                    f"buffered deltas — knob updates must land at a flush "
+                    f"boundary (the buffer drains at every flush)"
+                )
+            m = int(update.buffer_size)
+            acfg = replace(acfg, buffer_size=m)
+            self.state = dict(
+                self.state,
+                buffer=tree_map(lambda p: torch.zeros((m,) + tuple(p.shape), dtype=torch.float32,
+                                                      device=p.device), self.state["params"]),
+                buf_weights=torch.zeros((m,), dtype=torch.float32),
+                buf_staleness=torch.zeros((m,), dtype=torch.float32),
+            )
+        self.acfg = acfg
+        self._notify_knobs(update)
+
+    def _notify_knobs(self, update) -> None:
+        """Fired after an update is applied; the socket runtime's driver
+        passes it on to its backend."""
 
     # --- dispatch --------------------------------------------------------
     def _dispatch(self) -> None:
@@ -649,6 +796,51 @@ class AsyncBufferAggregator(Aggregator):
         snapshot = self.state["params"] if ev.completes else None
         version = int(self.state["round"])
         heapq.heappush(self._heap, (self.sim_time + ev.duration, ev.index, ev, snapshot, version))
+        self._on_dispatch(ev, snapshot, version)
+        self._trace_dispatch(ev, version)
+
+    def _on_dispatch(self, ev, snapshot, version: int) -> None:
+        """Fired once per dispatched slot, restored slots included: the
+        socket runtime hands the slot's assignment to its backend here."""
+
+    # --- telemetry (reads host values only) ------------------------------
+    def _trace_dispatch(self, ev, version: int) -> None:
+        """Open the dispatch span ``d{index}`` under the round span of its
+        snapshot's version, on the client's display track."""
+        if not self.tracer.enabled:
+            return
+        self.tracer.begin(
+            "dispatch", span_id=f"d{ev.index}", parent=f"u{version}",
+            index=ev.index, client=int(ev.client), version=version,
+            completes=bool(ev.completes), track=1 + int(ev.client),
+        )
+        self.tracer.count("dispatches")
+
+    def _trace_complete(self, ev, outcome: str, staleness=None) -> None:
+        """Close a dispatch span with its terminal outcome."""
+        if not self.tracer.enabled:
+            return
+        attrs: Dict[str, Any] = {"outcome": outcome}
+        if staleness is not None:
+            attrs["staleness"] = float(staleness)
+        self.tracer.end(f"d{ev.index}", **attrs)
+        self.tracer.count(f"outcome_{outcome}")
+
+    def _trace_admit(self, ev, metrics) -> Dict[str, Any]:
+        """One admission's instant, counters and histogram; returns its host
+        record (``{}`` untraced)."""
+        if not self.tracer.enabled:
+            return {}
+        rec = admission_record(metrics)
+        self.tracer.point("admit", parent=f"d{ev.index}", index=ev.index,
+                          client=int(ev.client), **rec)
+        if rec["accepted"]:
+            self.tracer.count("admits")
+            observe_staleness(self.tracer, rec["staleness"])
+        else:
+            self.tracer.count("admit_rejects")
+        self.tracer.gauge("buffer_occupancy", rec.get("buf_count", 0.0) / self.acfg.buffer_size)
+        return rec
 
     def _pop_completion(self):
         finish, _, ev, snapshot, version = heapq.heappop(self._heap)
@@ -713,6 +905,10 @@ class AsyncBufferAggregator(Aggregator):
             rs.note_screen_rejects()
             if not finite:
                 rs.add_quarantine([int(ev.client)], int(self.state["round"]))
+            if self.tracer.enabled:
+                self.tracer.point("screen_reject", parent=f"d{ev.index}", index=ev.index,
+                                  client=int(ev.client), norm=norm if finite else -1.0)
+                self.tracer.count("screen_rejects")
 
     def flush(self) -> Dict[str, Any]:
         """One outer update from the buffer; bumps the version unless empty."""
@@ -723,7 +919,7 @@ class AsyncBufferAggregator(Aggregator):
     def should_flush(self) -> bool:
         return int(self.state["buf_count"]) >= self.acfg.buffer_size
 
-    def _flush_row(self, flush_metrics) -> Dict[str, Any]:
+    def _flush_row(self, flush_metrics, deadline: bool = False) -> Dict[str, Any]:
         row: Dict[str, Any] = {k: float(v) for k, v in flush_metrics.items()}
         row["sim_time"] = self.sim_time
         row["train_loss_mean"] = (
@@ -737,7 +933,49 @@ class AsyncBufferAggregator(Aggregator):
                 sum(self._res_norms) / len(self._res_norms) if self._res_norms else 0.0
             )
         self._losses, self._staleness, self._res_norms = [], [], []
+        self._trace_flush(row, deadline)
+        # the flush boundary is the async control point: the buffer just
+        # drained, so a resize is safe; applied knobs echo into the row
+        update = self.control_step(row)
+        if update is not None:
+            for k, v in update.knob_dict().items():
+                row[f"knob_{k}"] = v
         return row
+
+    def _trace_flush(self, row: Dict[str, Any], deadline: bool) -> None:
+        """A flush instant; the round span rotates when the flush bumped the
+        version (an empty deadline flush does not)."""
+        t = self.tracer
+        if not t.enabled:
+            return
+        new_round = int(self.state["round"])
+        attrs = {"round": new_round, "deadline": deadline, "sim_time": row["sim_time"],
+                 "train_loss": row["train_loss_mean"]}
+        for k in ("buffer_fill", "staleness_mean", "staleness_max"):
+            if k in row:
+                attrs[k] = row[k]
+        t.point("flush", parent=self._round_span, **attrs)
+        t.count("deadline_flushes" if deadline else "flushes")
+        if f"u{new_round}" != self._round_span:
+            t.end(self._round_span, **{k: v for k, v in attrs.items() if k != "round"})
+            self._round_span = f"u{new_round}"
+            t.begin("round", span_id=self._round_span, round=new_round, track=0)
+        t.gauge("round", new_round)
+        t.gauge("sim_time", row["sim_time"])
+        t.gauge("train_loss", row["train_loss_mean"])
+        t.gauge("uplink_bytes_total", row["uplink_bytes_total"])
+        if "buffer_fill" in row:
+            t.gauge("last_flush_fill", row["buffer_fill"])
+
+    def finalize_trace(self) -> None:
+        """Close the K in-flight dispatch spans (``inflight_at_exit``) and the
+        round span at the end of a run, so the report's check can tell a
+        clean exit from a leak."""
+        if not self.tracer.enabled:
+            return
+        for _, _, ev, _, _ in sorted(self._heap, key=lambda e: (e[0], e[1])):
+            self._trace_complete(ev, "inflight_at_exit")
+        self.tracer.end(self._round_span)
 
     def force_flush(self) -> Optional[Dict[str, Any]]:
         """A last outer update from a partly filled buffer (end of a run); a
@@ -775,6 +1013,8 @@ class AsyncBufferAggregator(Aggregator):
         )
         if self.residuals is not None:
             manifest["uplink_ids"] = self.residuals.ids()
+        if self.controller is not None and self.controller.enabled:
+            manifest["control"] = self.controller.state_dict()
         if self.robust_state is not None:
             manifest["robust"] = self.robust_state.state_dict()
         return tree, manifest
@@ -820,6 +1060,8 @@ class AsyncBufferAggregator(Aggregator):
             heapq.heappush(self._heap, (float(slot["finish"]), ev.index, ev, snapshot,
                                         int(slot["version"])))
             self._busy.add(ev.client)
+            self._on_dispatch(ev, snapshot, int(slot["version"]))
+            self._trace_dispatch(ev, int(slot["version"]))
 
     @classmethod
     def checkpoint_template(cls, fed: FederatedConfig, acfg: AsyncAggConfig,
@@ -872,10 +1114,12 @@ class AsyncFederationDriver(AsyncBufferAggregator):
         dispatch: Optional[Dict[str, Any]] = None,
         fused_server: bool = False,
         robust: Optional[RobustAggConfig] = None,
+        tracer=None,
+        controller=None,
     ):
         super().__init__(fed, acfg, pcfg, seed=seed, params=params, rng=rng, state=state,
                          codec=codec, dispatch=dispatch, fused_server=fused_server,
-                         robust=robust)
+                         robust=robust, tracer=tracer, controller=controller)
         self.make_batches = make_batches
         self._loss_fn = loss_fn
         self._fed1 = replace(fed, clients_per_round=1, keep_inner_state=False)
@@ -890,6 +1134,7 @@ class AsyncFederationDriver(AsyncBufferAggregator):
                                                                  int(self.state["round"])):
             # a quarantined client never runs its phase: its time is wasted
             self.work_wasted += ev.duration
+            self._trace_complete(ev, "quarantined")
             self._dispatch()
             return None
         if ev.completes:
@@ -901,6 +1146,7 @@ class AsyncFederationDriver(AsyncBufferAggregator):
             batches = self.make_batches(ev.client)
             if rejected and self.residuals is None:
                 self.work_wasted += ev.duration
+                self._trace_complete(ev, "rejected_stale", staleness=staleness)
             else:
                 st: Dict[str, Any] = {"params": snapshot, "round": version}
                 kw: Dict[str, Any] = {}
@@ -926,16 +1172,20 @@ class AsyncFederationDriver(AsyncBufferAggregator):
                 self.uplink_bytes_total += self._bytes_per_upload
                 m = self.admit(delta, version, self.event_weight(ev))
                 self._note_admission(ev, m)
+                rec = self._trace_admit(ev, m)
                 if m["accepted"] > 0:
                     self.work_completed += ev.duration
                     self._staleness.append(float(m["staleness"]))
                     self._losses.append(float(aux["step_metrics"]["loss"][-1]))
+                    self._trace_complete(ev, "admitted", staleness=rec.get("staleness"))
                 else:  # refused at the door: kept out of the flush row
                     self.work_wasted += ev.duration
+                    self._trace_complete(ev, "rejected", staleness=rec.get("staleness"))
             if self.should_flush():
                 row = self._flush_row(self.flush())
         else:
             self.work_wasted += ev.duration
+            self._trace_complete(ev, "no_show")
         self._dispatch()
         return row
 

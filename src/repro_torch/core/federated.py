@@ -423,6 +423,23 @@ def _weighted_mean_clients(tree, weights: torch.Tensor):
                     tree)
 
 
+#: the round metrics a traced round's span and gauges carry (the reference's)
+TRACE_METRIC_KEYS = (
+    "train_loss",
+    "pseudo_grad_norm",
+    "client_consensus",
+    "weight_entropy",
+    "effective_clients",
+    "model_norm",
+)
+
+
+def trace_attrs(metrics: Dict[str, Any], keys=TRACE_METRIC_KEYS) -> Dict[str, float]:
+    """Host floats of a round's telemetry metrics: the one device read a
+    traced round pays, and only when tracing is on."""
+    return {k: float(metrics[k]) for k in keys if k in metrics}
+
+
 @torch.no_grad()
 def apply_aggregate(
     fed: FederatedConfig,

@@ -21,12 +21,14 @@ with the leaves' offsets for int8. Each is bitwise equal to its plain version.
 Each source is compiled at first use by ``kernels/build.py`` and bound with
 ``ctypes`` through a plain C interface. A tensor on the CPU goes to the plain
 version; a CUDA tensor launches the kernel or raises — there is no fallback.
-Each wrapper counts its launches in ``.launches``.
+Each wrapper counts its launches in ``.launches``, under a lock: the socket
+runtime's worker threads launch the codec kernels concurrently.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -43,7 +45,13 @@ CODEC_GRID = 8 * 132  # codec kernels' grid cap: 8 blocks of 256 per SM (full oc
 _THREADS = 256
 
 SOURCE = CSRC / "fedcore_server_apply.cu"
+_COUNT_LOCK = threading.Lock()
 CODEC_SOURCE = CSRC / "fedcore_codecs.cu"
+
+
+def _count(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,7 +166,7 @@ def server_apply(
         )
     if err != 0:
         raise RuntimeError(f"fedcore server_apply launch failed: CUDA error {err}")
-    server_apply.launches += 1
+    _count(server_apply)
     return out[0], out[1], out[2:]
 
 
@@ -265,7 +273,7 @@ def topk_mask_ef(xf: torch.Tensor, thresh: torch.Tensor) -> Tuple[torch.Tensor, 
     with torch.cuda.device(xf.device):
         _launch("topk_mask_ef", xf.data_ptr(), thresh.data_ptr(), kept.data_ptr(),
                 resid.data_ptr(), C, Np, CODEC_GRID, _stream(xf.device))
-    topk_mask_ef.launches += 1
+    _count(topk_mask_ef)
     return kept, resid
 
 
@@ -298,7 +306,7 @@ def sr_bf16(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         _launch("sr_bf16", x.data_ptr(), noise.data_ptr(), out.data_ptr(), x.numel(),
                 CODEC_GRID, _stream(x.device))
-    sr_bf16.launches += 1
+    _count(sr_bf16)
     return out
 
 
@@ -344,7 +352,7 @@ def int8_quant(x: torch.Tensor, scales: torch.Tensor, offsets: Sequence[int]) ->
     with torch.cuda.device(x.device):
         _launch("int8_quant", x.data_ptr(), scales.data_ptr(), off.data_ptr(), L,
                 q.data_ptr(), C, Np, CODEC_GRID, _stream(x.device))
-    int8_quant.launches += 1
+    _count(int8_quant)
     return q
 
 
@@ -369,7 +377,7 @@ def int8_dequant(q: torch.Tensor, scales: torch.Tensor, offsets: Sequence[int]) 
     with torch.cuda.device(q.device):
         _launch("int8_dequant", q.data_ptr(), scales.data_ptr(), off.data_ptr(), L,
                 out.data_ptr(), C, Np, CODEC_GRID, _stream(q.device))
-    int8_dequant.launches += 1
+    _count(int8_dequant)
     return out
 
 

@@ -308,7 +308,8 @@ class FusedInt8Codec(Int8Codec):
         entries, treedef = int8_payload_leaves(payloads)
         C = entries[0]["q"].shape[0]
         q_flat, spec = pack_client_leaves([e["q"] for e in entries], C, BLOCK)
-        scales = torch.stack([e["scale"] for e in entries], dim=1).contiguous()
+        # a scale that crossed the wire arrives as (C, 1), not (C,)
+        scales = torch.stack([e["scale"].reshape(C) for e in entries], dim=1).contiguous()
         out = K.int8_dequant(q_flat, scales, spec.offsets + (spec.n,))
         return tree_unflatten(treedef, unpack_client_leaves(out, spec))
 

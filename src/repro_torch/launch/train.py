@@ -24,6 +24,26 @@ state rides the checkpoint manifest. ``--byzantine-fraction`` (async) makes
 the lowest population ids attackers that corrupt every upload
 (``--byzantine-kind``).
 
+``--control`` closes the loop between telemetry and the aggregation knobs
+(``control/``): ``staleness`` (async) moves ``--staleness-alpha`` and the
+buffer size M (powers of two up to ``max(M, K)``) toward a target
+admitted-staleness quantile; ``cohort`` (sync) moves the straggler deadline
+and K (steps of 2) toward a target effective-K fraction; ``static`` (the
+default) is bitwise the uncontrolled run. Updates land at flush or round
+boundaries and the controller's state rides the checkpoint manifest.
+
+``--runtime sockets`` (async) turns the simulated timeline into processes:
+``--role server`` owns the aggregator, the dispatch manifest and every
+client's data cursor behind the length-prefixed socket protocol
+(``runtime/``); ``--role client`` workers pull assignments, run the client
+phase on their ``--device`` and push the encoded payloads back. Leases
+redispatch a dead worker's slot, ``--flush-deadline`` flushes past a stalled
+one, ``--chaos-*`` injects faults, and with the same seeds the final params
+are bitwise the in-process run's. ``--trace PATH`` appends the run's events
+as JSONL (``obs/``; merge and check them with ``python -m
+repro_torch.obs.report``) and ``--metrics-port`` serves Prometheus text;
+neither changes a result.
+
 ``--fused-server`` runs the server step (weighted mean + DP noise + outer
 update + its norms) as one pass over the flat ``(C, N)`` delta buffer — on the
 card, the hand-written CUDA ``server_apply`` kernel (async: once per flush,
@@ -45,11 +65,15 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch photon-75m --fused-server \\
       --aggregation async --byzantine-fraction 0.25 --byzantine-kind nan --rollback \\
       --ckpt-dir "$(mktemp -d)"
+  PYTHONPATH=src python -m repro_torch.launch.train --arch photon-75m --fused-server \\
+      --aggregation async --straggler-profile heavy --control staleness --trace run.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.train --arch photon-75m --fused-server \\
+      --aggregation async --runtime sockets --role server --port 5555 --uplink int8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch photon-75m --fused-server \\
+      --aggregation async --runtime sockets --role client --port 5555 --uplink int8 \\
+      --worker-id w0
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
       --local-steps 2 --clients 2 --population 4 --seq-len 64 --device cpu
-
-Not ported yet, and refused when set (see ROADMAP.md queue A): ``--control``
-and ``--runtime sockets``. Tracing has no flag here.
 """
 from __future__ import annotations
 
@@ -61,6 +85,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
+from repro_torch.control import CohortTuner, FederationController, KnobUpdate, StalenessGovernor
 from repro_torch.core import (
     CORRUPT_KINDS,
     ROBUST_RULES,
@@ -92,6 +117,8 @@ from repro_torch.metrics import (
     wallclock_speedup,
 )
 from repro_torch.models import build_model
+from repro_torch.obs import JsonlSink, MetricsServer, Tracer
+from repro_torch.runtime import ChaosConfig, ClientWorker, FederationDriver, SocketBackend
 
 
 def resolve_device(name: str) -> torch.device:
@@ -101,13 +128,14 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
-#: the reference's flags whose subsystems are not ported, as the reference
-#: parses them, with the ROADMAP.md queue A item that ports each: each is
-#: refused unless it has the reference's default
-_UNPORTED_FLAGS = (
-    ("--control", dict(default="static", choices=["static", "staleness", "cohort"]), 5),
-    ("--runtime", dict(default="inproc", choices=["inproc", "sockets"]), 6),
-)
+def _chaos_from_args(args):
+    chaos = ChaosConfig(
+        drop=args.chaos_drop, delay=args.chaos_delay, kill=args.chaos_kill,
+        corrupt=args.chaos_corrupt,
+        corrupt_kinds=tuple(k.strip() for k in args.chaos_corrupt_kinds.split(",") if k.strip()),
+        seed=args.chaos_seed,
+    )
+    return chaos if chaos.active else None
 
 
 def _robust_from_args(args):
@@ -128,6 +156,98 @@ def _robust_from_args(args):
         rollback_factor=args.rollback_factor,
         quarantine_rounds=args.quarantine_rounds,
     )
+
+
+def _build_tracer(args, proc):
+    """One tracer per process: events go to ``--trace`` (JSONL), counters feed
+    ``--metrics-port``; None when neither is set."""
+    if args.trace is None and args.metrics_port is None:
+        return None
+    sink = JsonlSink(args.trace) if args.trace else None
+    return Tracer(sink=sink, proc=proc, trace_id=f"seed{args.seed}")
+
+
+def _start_metrics(args, tracer, extra=None):
+    if tracer is None or args.metrics_port is None:
+        return None
+    srv = MetricsServer(tracer, port=args.metrics_port, extra=extra)
+    print(f"metrics serving on {srv.host}:{srv.port}", flush=True)
+    return srv
+
+
+def _build_controller(args, acfg=None, straggler=None):
+    """``--control`` → a :class:`FederationController`, or None for static;
+    refuses a policy the aggregation cannot host, in the reference's words."""
+    if args.control == "static":
+        return None
+    if args.control == "staleness":
+        if args.aggregation != "async":
+            raise SystemExit(
+                "--control staleness drives the async buffer knobs "
+                "(--staleness-alpha/--buffer-size) — it requires "
+                "--aggregation async; for sync runs use --control cohort"
+            )
+        policy = StalenessGovernor(
+            staleness_alpha=args.staleness_alpha,
+            buffer_size=acfg.buffer_size,
+            target=args.control_target if args.control_target is not None else 1.0,
+            quantile=args.control_quantile,
+            gain=args.control_gain if args.control_gain is not None else 0.5,
+            buffer_max=max(acfg.buffer_size, args.clients),
+        )
+    else:  # cohort
+        if args.aggregation != "sync":
+            raise SystemExit(
+                "--control cohort drives the sync deadline/cohort knobs — it "
+                "requires --aggregation sync; for async runs use "
+                "--control staleness"
+            )
+        if args.keep_opt:
+            raise SystemExit(
+                "--control cohort resizes the cohort, which is incompatible "
+                "with --keep-opt (the persisted inner optimizer state is "
+                "(K, ...)-shaped)"
+            )
+        if straggler.deadline <= 0.0:
+            raise SystemExit(
+                "--control cohort needs a finite straggler deadline to tune: "
+                "pick --straggler-profile mild/heavy or set --deadline"
+            )
+        policy = CohortTuner(
+            clients_per_round=args.clients,
+            deadline=straggler.deadline,
+            population=args.population,
+            target=args.control_target if args.control_target is not None else 0.9,
+            gain=args.control_gain if args.control_gain is not None else 0.25,
+        )
+    return FederationController(policy, window=args.control_window,
+                                interval=args.control_interval)
+
+
+def _restore_controller(controller, manifest, latest):
+    """Reconcile ``--control`` with the checkpoint's controller state; refuses
+    a governed run resumed statically and the reverse."""
+    ctrl_state = manifest.get("control") if isinstance(manifest, dict) else None
+    if controller is None:
+        if ctrl_state is not None:
+            raise SystemExit(
+                f"--resume: checkpoint round {latest} carries live "
+                f"--control {ctrl_state.get('policy')} state but this run asked "
+                f"for --control static — the knob trajectory would diverge; "
+                f"resume with the original policy"
+            )
+        return None
+    if ctrl_state is None:
+        raise SystemExit(
+            f"--resume: --control {controller.policy.name} requested but "
+            f"checkpoint round {latest} was written without a controller — "
+            f"resume with --control static or start fresh"
+        )
+    try:
+        controller.load_state_dict(ctrl_state)
+    except ValueError as e:
+        raise SystemExit(f"--resume: {e}")
+    return controller
 
 
 def parse_args(argv=None):
@@ -220,9 +340,61 @@ def parse_args(argv=None):
     ap.add_argument("--byzantine-kind", default="scale",
                     choices=[k for k in CORRUPT_KINDS if k != "replay"],
                     help="what the --byzantine-fraction attackers send")
-    for flag, spec, item in _UNPORTED_FLAGS:
-        ap.add_argument(flag, **spec, help=f"not ported: refused unless left at its "
-                                           f"default (ROADMAP.md queue A item {item})")
+    ap.add_argument("--runtime", default="inproc", choices=["inproc", "sockets"],
+                    help="inproc: the simulated single-process timeline; sockets: this "
+                         "process is the aggregation server (--role server) or one client "
+                         "worker (--role client) of a cross-process deployment. Requires "
+                         "--aggregation async")
+    ap.add_argument("--role", default="server", choices=["server", "client"],
+                    help="--runtime sockets: which process this is")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=0,
+                    help="server: listen port (0 = pick a free one, printed at startup); "
+                         "client: the server's port")
+    ap.add_argument("--worker-id", default="worker-0",
+                    help="--role client: this worker's name (lease bookkeeping)")
+    ap.add_argument("--lease-timeout", type=float, default=30.0,
+                    help="server: seconds before a granted but unreturned assignment is "
+                         "redispatched to another worker")
+    ap.add_argument("--io-timeout", type=float, default=30.0,
+                    help="sockets: per-request socket timeout")
+    ap.add_argument("--flush-deadline", type=float, default=None,
+                    help="server: flush a partly filled buffer when the next in-order result "
+                         "stalls this many seconds (default: wait — exact parity with inproc)")
+    ap.add_argument("--chaos-drop", type=float, default=0.0,
+                    help="fault injection: P(outbound message dropped)")
+    ap.add_argument("--chaos-delay", type=float, default=0.0,
+                    help="fault injection: P(outbound message delayed)")
+    ap.add_argument("--chaos-kill", type=float, default=0.0,
+                    help="fault injection: P(process hard-exits before a send)")
+    ap.add_argument("--chaos-corrupt", type=float, default=0.0,
+                    help="fault injection: P(a worker's push payload is poisoned before send)")
+    ap.add_argument("--chaos-corrupt-kinds", default=",".join(CORRUPT_KINDS),
+                    help="comma-separated corruption kinds --chaos-corrupt picks from "
+                         f"(any of: {', '.join(CORRUPT_KINDS)})")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--control", default="static", choices=["static", "staleness", "cohort"],
+                    help="closed-loop aggregation control: static (bitwise the uncontrolled "
+                         "run); staleness (async) governs --staleness-alpha/--buffer-size "
+                         "toward a target admitted-staleness quantile; cohort (sync) tunes "
+                         "the straggler deadline and --clients from the effective-K fraction")
+    ap.add_argument("--control-target", type=float, default=None,
+                    help="the setpoint: admitted-staleness quantile in server rounds "
+                         "(staleness, default 1.0) or effective-K fraction (cohort, 0.9)")
+    ap.add_argument("--control-quantile", type=float, default=0.9,
+                    help="--control staleness: the staleness quantile held at the target")
+    ap.add_argument("--control-gain", type=float, default=None,
+                    help="proportional gain (default 0.5 staleness / 0.25 cohort)")
+    ap.add_argument("--control-window", type=int, default=4,
+                    help="metric rows the controller aggregates per decision")
+    ap.add_argument("--control-interval", type=int, default=1,
+                    help="boundaries between control decisions")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="append structured trace events to this JSONL file (under "
+                         "--runtime sockets one path per process; merge with python -m "
+                         "repro_torch.obs.report); tracing never changes a result")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus text on 127.0.0.1:PORT/metrics (0 = a free port)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--log", default=None)
@@ -232,11 +404,7 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    for flag, spec, item in _UNPORTED_FLAGS:
-        value = getattr(args, flag[2:].replace("-", "_"))
-        if value != spec.get("default", False):
-            raise SystemExit(f"{flag} {value} is not ported yet (ROADMAP.md queue A item {item})")
+def _refuse_uplink_dtype(args) -> None:
     if args.pseudo_grad_dtype not in ("float32", "bfloat16"):
         raise SystemExit(f"--pseudo-grad-dtype {args.pseudo_grad_dtype!r}: float32 or bfloat16")
     if args.uplink != "float32" and args.pseudo_grad_dtype != "float32":
@@ -249,6 +417,11 @@ def _refuse_unported(args) -> None:
 def _refuse_compositions(args):
     """The reference's refusals of flag combinations, in its order and
     wording; returns the robust config."""
+    if args.runtime == "sockets" and args.aggregation != "async":
+        raise SystemExit(
+            "--runtime sockets requires --aggregation async: the socket server "
+            "IS the buffered-aggregation event loop (docs/runtime.md)"
+        )
     try:
         robust = _robust_from_args(args)
     except ValueError as e:
@@ -310,7 +483,7 @@ def _roll_back(ckpt, agg, good: int) -> None:
     agg.adopt_model(restored)
 
 
-def _resume(args, agg, fed, pcfg, params, codec, streams, ckpt):
+def _resume(args, agg, fed, pcfg, params, codec, streams, ckpt, controller):
     """Adopt the newest complete checkpoint; returns the next round to run."""
     latest = ckpt.latest_round()
     if latest is None:
@@ -327,11 +500,6 @@ def _resume(args, agg, fed, pcfg, params, codec, streams, ckpt):
                 f"{agg_man.get('kind')} run; resuming it synchronously would silently drop "
                 f"the buffer lanes and the in-flight dispatch queue — resume with the "
                 f"original aggregation mode or start fresh"
-            )
-        if "control" in agg_man:
-            raise SystemExit(
-                f"--resume: checkpoint round {latest} carries 'control' state, which "
-                f"this package does not port yet (ROADMAP.md queue A item 5)"
             )
         try:
             SyncAggregator.validate_manifest(agg_man, "sync")
@@ -361,6 +529,14 @@ def _resume(args, agg, fed, pcfg, params, codec, streams, ckpt):
             f"run needs (missing {e}); resume with the original --outer/--keep-opt, "
             f"and error-feedback residuals only round-trip with the same --uplink codec"
         )
+    controller = _restore_controller(
+        controller, agg_man if isinstance(agg_man, dict) else {}, latest)
+    if controller is not None:
+        # the checkpoint may be mid-trajectory: the aggregator takes the
+        # controller's current knobs, not the CLI's, before any round runs
+        knobs = controller.knobs()
+        agg.apply_knobs(KnobUpdate(clients_per_round=int(knobs["clients_per_round"]),
+                                   deadline=knobs["deadline"]))
     agg.restore(state, agg_man)
     for i, s in enumerate(streams):
         try:
@@ -372,7 +548,7 @@ def _resume(args, agg, fed, pcfg, params, codec, streams, ckpt):
 
 
 def run(args, cfg=None) -> dict:
-    _refuse_unported(args)
+    _refuse_uplink_dtype(args)
     robust = _refuse_compositions(args)
     device = resolve_device(args.device)
     if cfg is None:
@@ -419,20 +595,40 @@ def run(args, cfg=None) -> dict:
     codec = (get_codec(args.uplink, args.topk_fraction, fused=args.fused_server)
              if args.uplink != "float32" else None)
     if args.aggregation == "async":
+        if args.runtime == "sockets" and args.role == "client":
+            return _run_worker(args, model, fed, pcfg, streams, codec, device)
         return _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec,
                           device, robust)
 
+    tracer = _build_tracer(args, "server")
+    controller = _build_controller(args, straggler=straggler)
     agg = SyncAggregator(
         model.loss, fed, pcfg, seed=args.seed, partial_progress=args.partial_progress,
         fused_server=args.fused_server, params=params, rng=prng_key(args.seed + 1),
-        codec=codec, cohort_tile=args.cohort_tile, robust=robust,
+        codec=codec, cohort_tile=args.cohort_tile, robust=robust, tracer=tracer,
+        controller=controller,
     )
+    metrics_srv = _start_metrics(args, tracer)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    start_round = (_resume(args, agg, fed, pcfg, params, codec, streams, ckpt)
+    start_round = (_resume(args, agg, fed, pcfg, params, codec, streams, ckpt, controller)
                    if ckpt and args.resume else 0)
     logger = MetricLogger(args.log) if args.log else None
 
     history = []
+    try:
+        _run_sync_rounds(args, model, agg, streams, val_stream, ckpt, logger, history,
+                         start_round, params, codec, device, robust)
+    finally:
+        if metrics_srv is not None:
+            metrics_srv.close()
+        if tracer is not None:
+            tracer.close()
+    return {"history": history, "state": agg.state, "model": model, "config": cfg,
+            "aggregator": agg}
+
+
+def _run_sync_rounds(args, model, agg, streams, val_stream, ckpt, logger, history,
+                     start_round, params, codec, device, robust):
     for rnd in range(start_round, args.rounds):
         t0 = time.perf_counter()
         plan = agg.plan(rnd)
@@ -487,12 +683,25 @@ def run(args, cfg=None) -> dict:
                     rs.note_rollback()
                     rolled_back = True
                     metrics["rolled_back"] = 1.0
+                    if agg.tracer.enabled:
+                        pg = metrics["pseudo_grad_norm"]
+                        agg.tracer.point("rollback", round=rnd, restored_round=good,
+                                         pg_norm=float(pg) if pg == pg else -1.0,
+                                         quarantined=len(contributors))
+                        agg.tracer.count("rollbacks")
                     print(f"  ROLLBACK: update norm {metrics['pseudo_grad_norm']:.4g} tripped "
                           f"the divergence guard — restored round {good}, quarantined "
                           f"{contributors} for {robust.quarantine_rounds} rounds")
                 else:
                     print("  divergence guard tripped but no good checkpoint exists yet — "
                           "continuing without rollback")
+        # the round boundary is the sync control point: the cohort tuner may
+        # move the deadline and K for the next round (echoed into the row)
+        update = agg.control_step(metrics)
+        if update is not None:
+            for k, v in update.knob_dict().items():
+                metrics[f"knob_{k}"] = v
+            print("  control: " + ", ".join(f"{k}={v:g}" for k, v in update.knob_dict().items()))
         if logger:
             logger.log(metrics)
         if ckpt:
@@ -504,9 +713,6 @@ def run(args, cfg=None) -> dict:
             ckpt.save_server(rnd, tree, extra={"args": vars(args), "aggregator": agg_manifest})
             for i in range(args.population):
                 ckpt.save_client(rnd, i, streams[i].state_dict())
-
-    return {"history": history, "state": agg.state, "model": model, "config": cfg,
-            "aggregator": agg}
 
 
 # args whose value changes the dispatch timeline, the data every client draws
@@ -556,6 +762,32 @@ def _check_async_resume_args(args, ck_args: dict) -> None:
             )
 
 
+def _run_worker(args, model, fed, pcfg, streams, codec, device) -> dict:
+    """``--runtime sockets --role client``: one pure-compute worker. It builds
+    the server's model and configs but owns no federation state: every
+    assignment ships the params snapshot, the residual row, the codec key and
+    the client's data cursor; its streams only receive cursors."""
+    if args.partial_progress:
+        pcfg = dataclasses.replace(pcfg, partial_progress=True, local_steps=args.local_steps)
+    tracer = _build_tracer(args, args.worker_id)
+    worker = ClientWorker(
+        model.loss, fed, pcfg, streams=streams, batch_size=args.batch,
+        host=args.host, port=args.port, codec=codec, name=args.worker_id,
+        io_timeout=args.io_timeout, chaos=_chaos_from_args(args), tracer=tracer, device=device,
+    )
+    metrics_srv = _start_metrics(args, tracer)
+    print(f"worker {args.worker_id} serving {args.host}:{args.port}")
+    try:
+        n = worker.run()
+    finally:
+        if metrics_srv is not None:
+            metrics_srv.close()
+        if tracer is not None:
+            tracer.close()
+    print(f"worker {args.worker_id} done after {n} assignments")
+    return {"completed": n, "worker": worker}
+
+
 def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, device,
                robust=None) -> dict:
     """Event-driven FedBuff-style training: K busy client slots, a server-side
@@ -573,6 +805,7 @@ def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, 
         # the deadline becomes a per-dispatch budget: plan_round derives τ_i and
         # the aggregator admits partial deltas at the fractional τ_i/τ weight
         pcfg = dataclasses.replace(pcfg, partial_progress=True, local_steps=args.local_steps)
+    controller = _build_controller(args, acfg=acfg)
 
     def make_batches(cid):
         b = round_batches([streams[cid]], args.local_steps, args.batch)
@@ -595,16 +828,17 @@ def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, 
                     f"manifest (written by a sync run, or before the resumable schema) — "
                     f"the in-flight dispatch queue cannot be replayed; start fresh"
                 )
-            if "control" in dispatch:
-                raise SystemExit(
-                    f"--resume: checkpoint round {latest} carries 'control' state, which "
-                    f"this package does not port yet (ROADMAP.md queue A item 5)"
-                )
             try:
                 AsyncBufferAggregator.validate_manifest(dispatch, "async")
             except ValueError as e:
                 raise SystemExit(f"--resume: {e}")
             _check_async_resume_args(args, extra.get("args", {}))
+            controller = _restore_controller(controller, dispatch, latest)
+            if controller is not None:
+                # the buffer lanes in the checkpoint have the controller's M
+                knobs = controller.knobs()
+                acfg = dataclasses.replace(acfg, staleness_alpha=float(knobs["staleness_alpha"]),
+                                           buffer_size=int(knobs["buffer_size"]))
             like = AsyncBufferAggregator.checkpoint_template(
                 fed, acfg, pcfg, params, codec, uplink_ids=dispatch.get("uplink_ids"))
             state, _ = ckpt.load_server(latest, like)
@@ -618,14 +852,30 @@ def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, 
             print(f"resumed async run from update {latest} (dispatch cursor "
                   f"{dispatch['cursor']}, sim_time {dispatch['sim_time']:.2f})")
 
-    driver = AsyncFederationDriver(
-        model.loss, fed, acfg, pcfg, make_batches, seed=args.seed, params=params,
-        rng=prng_key(args.seed + 1), codec=codec, state=state, dispatch=dispatch,
-        fused_server=args.fused_server, robust=robust,
-    )
-    # the in-process attack simulator: the lowest population ids corrupt every upload
-    driver.corrupt_fn = make_byzantine_fn(args.byzantine_fraction, args.byzantine_kind,
-                                          args.population)
+    tracer = _build_tracer(args, "server")
+    backend = None
+    common = dict(seed=args.seed, params=params, rng=prng_key(args.seed + 1), codec=codec,
+                  state=state, dispatch=dispatch, fused_server=args.fused_server,
+                  robust=robust, tracer=tracer, controller=controller)
+    if args.runtime == "sockets":
+        # the server owns every client's data cursor: it ships with each
+        # assignment and the advanced one is committed in event order, so the
+        # checkpointed cursors agree with the dispatch manifest
+        backend = SocketBackend(
+            host=args.host, port=args.port, stream_states=[s.state_dict() for s in streams],
+            lease_timeout=args.lease_timeout, io_timeout=args.io_timeout,
+            chaos=_chaos_from_args(args), tracer=tracer, device=device,
+        )
+        print(f"server listening on {backend.host}:{backend.port}", flush=True)
+        driver = FederationDriver(backend, fed, acfg, pcfg, flush_deadline=args.flush_deadline,
+                                  **common)
+    else:
+        driver = AsyncFederationDriver(model.loss, fed, acfg, pcfg, make_batches, **common)
+        # the in-process attack simulator: the lowest population ids corrupt every upload
+        driver.corrupt_fn = make_byzantine_fn(args.byzantine_fraction, args.byzantine_kind,
+                                              args.population)
+    metrics_srv = _start_metrics(
+        args, tracer, extra=(backend.metrics_extras if backend is not None else None))
 
     # what the deadline-masking sync schedule pays to aggregate as many deltas
     sync_cum = [(0.0, 0)]  # (cumulative sim time, cumulative aggregated deltas)
@@ -675,6 +925,9 @@ def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, 
             f"t_sim={row['sim_time']:.2f} speedup={row['wallclock_speedup']:.2f}x "
             f"[{row['seconds']:.1f}s]"
         )
+        knobs = {k[len("knob_"):]: v for k, v in row.items() if k.startswith("knob_")}
+        if knobs:
+            print("  control: " + ", ".join(f"{k}={v:g}" for k, v in knobs.items()))
         # the async guard: a spiking flush norm rolls the server back to the
         # last good update and drains the buffer; no one is quarantined (the
         # flush mixes many senders — repeat offenders are the door's job)
@@ -690,6 +943,9 @@ def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, 
                     rs.note_rollback()
                     rolled_back = True
                     row["rolled_back"] = 1.0
+                    if driver.tracer.enabled:
+                        driver.tracer.point("rollback", round=u, restored_round=good)
+                        driver.tracer.count("rollbacks")
                     print(f"  ROLLBACK: flush norm tripped the divergence guard — restored "
                           f"update {good} (buffer drained)")
                 else:
@@ -705,14 +961,27 @@ def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, 
                 "args": vars(args), "aggregator": agg_manifest,
                 "train": {"deltas_admitted": deltas_admitted[0]}, "sim_time": row["sim_time"],
             })
-            for ci in range(args.population):
-                ckpt.save_client(u, ci, streams[ci].state_dict())
+            # the cursors' source of truth: the streams in process, the
+            # backend's committed cursors under sockets
+            cursors = (backend.snapshot_stream_states() if backend is not None
+                       else [streams[ci].state_dict() for ci in range(args.population)])
+            for ci, cur in enumerate(cursors):
+                ckpt.save_client(u, ci, cur)
 
-    if args.rounds > start_update:
-        driver.run_updates(args.rounds - start_update, on_update=on_update)
-    else:
-        print(f"nothing to do: checkpoint already at update {start_update - 1} "
-              f"of {args.rounds}")
+    try:
+        if args.rounds > start_update:
+            driver.run_updates(args.rounds - start_update, on_update=on_update)
+        else:
+            print(f"nothing to do: checkpoint already at update {start_update - 1} "
+                  f"of {args.rounds}")
+    finally:
+        driver.finalize_trace()  # close the in-flight dispatch spans (no-op untraced)
+        if backend is not None:
+            backend.close(linger=1.0)  # let the workers pull the "done" answer
+        if metrics_srv is not None:
+            metrics_srv.close()
+        if tracer is not None:
+            tracer.close()
     return {"history": history, "state": driver.state, "model": model, "config": cfg,
             "driver": driver}
 

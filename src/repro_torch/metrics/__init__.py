@@ -1,6 +1,7 @@
 from repro_torch.metrics.fedmetrics import (  # noqa: F401
     MetricLogger,
     evaluate_perplexity,
+    histogram_quantile,
     partial_progress_metrics,
     participation_metrics,
     perplexity,
@@ -8,4 +9,6 @@ from repro_torch.metrics.fedmetrics import (  # noqa: F401
     staleness_stats,
     uplink_round_metrics,
     wallclock_speedup,
+    window_concat,
+    window_mean,
 )

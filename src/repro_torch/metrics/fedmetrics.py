@@ -1,7 +1,8 @@
 """Federated training monitors, the ported part of ``repro.metrics.fedmetrics``:
 perplexity, held-out evaluation, the per-round participation,
 partial-progress and uplink-cost rows, the async buffer's staleness summary
-and simulated speedup, and the CSV logger."""
+and simulated speedup, the control loop's window statistics and the CSV
+logger."""
 from __future__ import annotations
 
 import csv
@@ -113,6 +114,51 @@ def staleness_hist_counts(staleness: Iterable[float]) -> np.ndarray:
         else:
             counts.append(float(((s >= lo) & (s <= hi)).sum()))
     return np.asarray(counts, np.float64)
+
+
+def histogram_quantile(counts, q: float) -> float:
+    """Conservative quantile off the cumulative staleness histogram: the upper
+    edge of the first bucket whose cumulative count reaches ``q * total``
+    (the open last bucket reports its lower edge; empty is 0.0), so the
+    result is one of the bucket edges {0, 1, 3, 7, 8}."""
+    c = np.asarray(counts, np.float64)
+    if c.shape[0] != len(_STALENESS_BUCKETS):
+        raise ValueError(
+            f"expected {len(_STALENESS_BUCKETS)} bucket counts, got {c.shape[0]}"
+        )
+    total = float(c.sum())
+    if total <= 0.0:
+        return 0.0
+    rank = float(q) * total
+    cum = 0.0
+    for (lo, hi), n in zip(_STALENESS_BUCKETS, c):
+        cum += float(n)
+        if cum >= rank:
+            return float(hi if hi is not None else lo)
+    return float(_STALENESS_BUCKETS[-1][0])  # pragma: no cover — q > 1 guard
+
+
+def window_mean(rows, key: str, default: float = 0.0) -> float:
+    """Mean of ``row[key]`` over the window's rows that carry it, non-finite
+    values skipped; ``default`` when none does."""
+    vals = [
+        float(r[key]) for r in rows
+        if r.get(key) is not None and math.isfinite(float(r[key]))
+    ]
+    if not vals:
+        return float(default)
+    return float(sum(vals) / len(vals))
+
+
+def window_concat(rows, key: str) -> List[float]:
+    """The window's per-row list metrics (``admitted_staleness``) concatenated,
+    non-finite elements dropped."""
+    out: List[float] = []
+    for r in rows:
+        v = r.get(key)
+        if v:
+            out.extend(float(x) for x in v if math.isfinite(float(x)))
+    return out
 
 
 def wallclock_speedup(sync_time: float, async_time: float) -> float:

@@ -19,8 +19,7 @@
   lr_max), with at most 16 entries above 1e-5 (see the test).
 - Checkpoints cross over in both directions through the two CLIs (default
   bf16 compute: losses to rel 2e-2, val_ppl 5e-2, as ``test_torch_train.py``).
-- The CLI refuses what is not ported, and what the reference refuses, and
-  resumes bitwise.
+- The CLI refuses what the reference refuses, and resumes bitwise.
 """
 import csv
 import dataclasses
@@ -670,8 +669,11 @@ def test_cli_runs_two_updates_and_resume_continues_bitwise(tmp_path, uplink):
                  id="--keep-opt---keep-opt with --aggregation async"),
     pytest.param(["--cohort-tile", "2"], "applies to --aggregation sync only",
                  id="--cohort-tile-queue A item 3"),
-    pytest.param(["--runtime", "sockets"], "queue A item 6", id="--runtime-queue A item 6"),
-    pytest.param(["--control", "staleness"], "queue A item 5", id="--control-queue A item 5"),
+    pytest.param(["--runtime", "sockets", "--aggregation", "sync"],
+                 "--runtime sockets requires --aggregation async", id="--runtime-queue A item 6"),
+    pytest.param(["--control", "staleness", "--aggregation", "sync"],
+                 "--control staleness drives the async buffer knobs",
+                 id="--control-queue A item 5"),
     pytest.param(["--robust-agg", "trimmed"], "and --fused-server are mutually exclusive",
                  id="--robust-agg-queue A item 4"),
     pytest.param(["--screen"], "and --fused-server are mutually exclusive",
@@ -684,10 +686,11 @@ def test_cli_runs_two_updates_and_resume_continues_bitwise(tmp_path, uplink):
                  id="--byzantine-kind-queue A item 4"),
 ])
 def test_cli_refuses_what_is_not_ported(extra, match):
-    """``--control`` and ``--runtime sockets`` are not ported (ROADMAP.md
-    queue A items 5 and 6) and refused; the cohort-tile, robust and
-    Byzantine flags are ported and refused only where the reference refuses
-    them (``test_torch_robust_cli.py`` compares the wording)."""
+    """Every flag of the reference is ported (the control and runtime flags
+    since queue A items 5 and 6) and refused only where the reference
+    refuses it: ``--runtime sockets`` and ``--control staleness`` under
+    sync (``test_torch_robust_cli.py``, ``test_torch_control.py`` and
+    ``test_torch_runtime.py`` compare the wording)."""
     with pytest.raises(SystemExit, match=match):
         tt.run(tt.parse_args(ASYNC + ["--rounds", "1", "--device", "cpu"] + extra))
 

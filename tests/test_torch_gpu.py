@@ -10,7 +10,9 @@ non-finite values included (int8_dequant also with a NaN, +inf or ×64 scale
 plane; server_apply on a NaN, +inf or ×64 lane, NaN at weight 0 included:
 non-finite values at the plain version's positions); a one-tile round is
 bitwise the flat round; the async driver launches each fedcore kernel
-exactly as often as it counts flushes, client phases and admissions. The SSD
+exactly as often as it counts flushes, client phases and admissions; the
+staleness governor's flushes run server_apply at the widths it picks; a
+socket run (worker threads on the card) is bitwise the in-process run. The SSD
 scan, flash attention and flash decode: y within one bf16 ulp of the plain
 version (f32: 1e-5·max|y|). RMSNorm: bf16 within one bf16 ulp, f32 within
 2e-6·|y|. Flash decode and RMSNorm also give the same bits on two launches,
@@ -328,6 +330,95 @@ def test_async_driver_on_cuda_launches_what_it_counts(uplink):
     assert {n: f.launches for n, f in K.KERNELS.items()} == want
     assert all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_ppl"])
                for r in out["history"])
+
+
+def _reduced_async(extra):
+    from repro_torch.launch import train as T
+
+    return T.parse_args(["--reduced", "--local-steps", "2", "--clients", "4", "--population", "8",
+                         "--seq-len", "64", "--fused-server", "--aggregation", "async",
+                         "--straggler-profile", "heavy", "--eval-batches", "1",
+                         "--device", "cuda"] + extra)
+
+
+def test_governed_async_run_on_cuda_flushes_at_the_widths_the_governor_picks():
+    """``--control staleness``: server_apply runs once per flush at M = 2, 1,
+    2, 4, 4 (the widths the governor picks on the CPU), each launch counted."""
+    _need_cuda()
+    import repro_torch.kernels.fedcore as F
+    from repro_torch.launch import train as T
+
+    widths, orig = [], F.fused_apply_aggregate
+
+    def recorded(fed, state, deltas, client_weights=None, codec=None):
+        widths.append(int(client_weights.shape[0]))  # the buffer's M
+        return orig(fed, state, deltas, client_weights=client_weights, codec=codec)
+
+    F.fused_apply_aggregate = recorded
+    try:
+        for f in K.KERNELS.values():
+            f.launches = 0
+        out = T.run(_reduced_async(["--rounds", "5", "--control", "staleness",
+                                    "--control-target", "0.5", "--uplink", "int8"]))
+    finally:
+        F.fused_apply_aggregate = orig
+    torch.cuda.synchronize()
+    drv = out["driver"]
+    assert widths == [2, 1, 2, 4, 4]
+    assert K.server_apply.launches == drv.n_flushes == 5
+    assert K.int8_quant.launches == drv.n_client_phases
+    assert K.int8_dequant.launches == drv.n_admissions == 13
+
+
+@pytest.mark.parametrize("uplink", ["float32", "int8"])
+def test_socket_run_on_cuda_is_bitwise_the_in_process_run(uplink):
+    """Worker threads on the card against an in-card server: rows and params
+    bitwise the in-process driver's; int8_quant once per executed assignment,
+    int8_dequant once per admission, server_apply once per flush."""
+    _need_cuda()
+    import threading
+
+    from repro_torch.launch import train as T
+    from repro_torch.runtime import Backoff, ClientWorker
+    from repro_torch.tree import tree_leaves
+
+    args = ["--rounds", "3", "--uplink", uplink]
+    ref = T.run(_reduced_async(args))
+    import socket as so
+
+    with so.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    base = args + ["--runtime", "sockets", "--port", port]
+    done = {}
+
+    class Quick(ClientWorker):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, backoff=Backoff(give_up_after=5.0), **kw)
+
+    saved, T.ClientWorker = T.ClientWorker, Quick
+    threads = [threading.Thread(target=lambda n=n: done.setdefault(n, T.run(_reduced_async(
+        base + ["--role", "client", "--worker-id", n]))), daemon=True) for n in ("w0", "w1")]
+    try:
+        for t in threads:
+            t.start()
+        for f in K.KERNELS.values():
+            f.launches = 0
+        out = T.run(_reduced_async(base + ["--role", "server"]))
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        T.ClientWorker = saved
+    torch.cuda.synchronize()
+    strip = lambda h: [{k: v for k, v in r.items() if k != "seconds"} for r in h]  # noqa: E731
+    assert strip(out["history"]) == strip(ref["history"])
+    for a, b in zip(tree_leaves(out["state"]["params"]), tree_leaves(ref["state"]["params"])):
+        assert torch.equal(a, b)
+    drv = out["driver"]
+    executed = sum(r["worker"].n_client_phases for r in done.values())
+    assert K.server_apply.launches == drv.n_flushes == 3
+    if uplink == "int8":
+        assert K.int8_quant.launches == executed and K.int8_dequant.launches == drv.n_admissions
 
 
 def _bits(t):

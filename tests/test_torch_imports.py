@@ -75,6 +75,11 @@ def test_source_imports_neither_jax_nor_repro(path):
     "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.rmsnorm.ref",
     "repro_torch.core.async_agg", "repro_torch.core.aggregator", "repro_torch.core.sampler",
     "repro_torch.core.robust", "repro_torch.core.federated", "repro_torch.launch.train",
+    "repro_torch.obs", "repro_torch.obs.events", "repro_torch.obs.tracer",
+    "repro_torch.obs.metrics", "repro_torch.obs.export", "repro_torch.obs.report",
+    "repro_torch.control", "repro_torch.control.policy", "repro_torch.control.controller",
+    "repro_torch.runtime", "repro_torch.runtime.transport", "repro_torch.runtime.chaos",
+    "repro_torch.runtime.driver", "repro_torch.runtime.server", "repro_torch.runtime.worker",
 ])
 def test_serving_slice_modules_are_among_the_scanned(module):
     assert module in {_module_name(p) for p in SOURCES if p.suffix == ".py" and PKG in p.parents}
