@@ -36,7 +36,9 @@ Phases, one JSON line each:
                 CUDA-core kernel), kernel / plain / bound times (bf16 against
                 the tensor cores' peak, f32 against the CUDA cores'), device
                 and host enqueue times; and bf16 at S = 2000 through
-                ``ops.ssd``'s padding
+                ``ops.ssd``'s padding; then jamba-v0.1-52b's SSM layer
+                (B = 2, S = 2048, nh = 128, hd = 64, G = 1, ds = 16, chunk
+                = 64, bf16: the CUDA-core kernel) and its S = 2000
   flash_attention
                 the flash attention kernel against its plain version at
                 whisper-large-v3's encoder layer (B = 4, H = 20, S = 1500,
@@ -51,7 +53,8 @@ Phases, one JSON line each:
                 (B, S, H, hd) tensors: exactly one device kernel under
                 torch.profiler, o contiguous and within the tolerance
   flash_decode  the flash decode kernel through its entry point ``ops.flash_decode``
-                (model-layout caches read in place) at qwen3-1.7b's decode_32k
+                (model-layout caches read in place; each case's shape read
+                from its config and input shape) at qwen3-1.7b's decode_32k
                 attention layer (B = 128, Hq = 16, Hkv = 8, S = 32768, hd = 128,
                 bf16; 17.18 GB of cache) and gemma3-4b's long_500k global and
                 local (window 1024) layers (B = 1, Hq = 8, Hkv = 4, S = 524288,
@@ -70,9 +73,9 @@ Phases, one JSON line each:
   check         a reduced photon round on the card agrees with the same round on
                 the CPU (float32 compute), with the float32 and the top-k uplink,
                 and so do two reduced async updates (heavy stragglers);
-                reduced mamba2-1.3b, photon-75m and whisper-large-v3 ``generate``
-                (float32, use_pallas) give the same tokens on the card and on
-                the CPU
+                reduced mamba2-1.3b, photon-75m, whisper-large-v3, gemma3-4b,
+                deepseek-moe-16b and jamba-v0.1-52b ``generate`` (float32,
+                use_pallas) give the same tokens on the card and on the CPU
   train         ``repro_torch.launch.train --arch photon-75m --fused-server``
                 for two rounds at full width on the card, with ``--uplink``
                 float32, topk, bf16 and int8; the kernel launch counts are
@@ -148,6 +151,27 @@ Phases, one JSON line each:
                 then ``generate(use_pallas=True)``: exactly 32 flash_attention
                 launches per prefill, none per decode step, no other kernel;
                 the serve numbers and profile as above
+  serve_families
+                every dense RoPE/GQA decoder and MoE arch at its published
+                widths (random f32 weights from ``Model.init(0,
+                device="cuda")``, bf16 compute): granite-3-2b, qwen3-1.7b and
+                gemma3-4b whole; deepseek-coder-33b (20 of 62 layers),
+                chameleon-34b (14 of 48), deepseek-moe-16b (20 of 28),
+                llama4-scout-17b-a16e (4 of 48) and jamba-v0.1-52b (6 of 32,
+                MMMMAM), each at most 48 GB of f32 weights. B = 2, a
+                2048-token prompt, 16 greedy tokens through ``generate(
+                use_pallas=True)``: prefill ms, decode ms a step, peak memory,
+                the profiles; no kernel launch on any arch but jamba, which
+                launches ssd_scan 5 times per prefill and never in a decode
+                step; jamba's prefill also with use_pallas against without,
+                float32 (its first SSM layer's caches held to 1e-4) and bf16
+  train_moe     ``launch/train.run`` on deepseek-moe-16b at published widths
+                cut to 2 layers (1,093,281,792 params; layer 0 dense, layer 1
+                MoE): --fused-server --clients 2 --population 4 --rounds 2:
+                server_apply once per round at C = 2 over N past 2^31 / C,
+                no other kernel; finite loss, val_ppl and moe_aux; peak
+                memory and round seconds; server_apply held to its plain
+                version at that (C, N)
   kernels       one line {"kernels": [...]} with every kernel's numbers; the
                 fedcore kernels' entries add the async path's launches
                 (``async_launches``), the Byzantine run's
@@ -157,11 +181,16 @@ Phases, one JSON line each:
                 cases (``poisoned_cases``); the fedcore entries add the
                 governed, cohort and socket runs' launches, and
                 ``server_apply`` the widths the controller picked with each
-                width's kernel / plain / bound times (``width_cases``)
+                width's kernel / plain / bound times (``width_cases``);
+                ``server_apply`` adds train_moe's launches and (C, N) case
+                (``moe_launches``, ``moe_case``), ``ssd_scan`` jamba's
+                launches and layer case (``jamba_launches``, ``jamba_case``)
 
 No model path launches flash_decode or rmsnorm (none does in the JAX package
-either): the train and serve phases hold their counts at 0, and their
-launches in the kernels line are those of the entry-point calls above.
+either), and no decoder layer launches flash_attention (its window is a 0-d
+tensor, in both packages): the train and serve phases hold their counts at
+0, and the launches of the first two in the kernels line are those of the
+entry-point calls above.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without a CUDA device the script exits 2 before printing a result.
@@ -204,12 +233,12 @@ FLASH_SMALL = [
     (2, 16, 4, 333, 333, 64, True, 64, 0),  # GQA grp 4, window, ragged
     (1, 4, 2, 64, 40, 64, True, None, -16),  # rows that see no key
 ]
-#: (case, B, Hq, Hkv, S, hd, window), kv_len = S on every row: qwen3-1.7b's
-#: attention at decode_32k, gemma3-4b's global and local layers at long_500k
-DECODE_CASES = [
-    ("qwen3-1.7b decode_32k", 128, 16, 8, 32768, 128, None),
-    ("gemma3-4b long_500k global", 1, 8, 4, 524288, 256, None),
-    ("gemma3-4b long_500k local", 1, 8, 4, 524288, 256, 1024),
+#: (arch, input shape, layer): qwen3-1.7b's attention at decode_32k, gemma3-4b's
+#: global and local layers at long_500k (:func:`decode_cases` reads their shapes)
+DECODE_LAYERS = [
+    ("qwen3-1.7b", "decode_32k", None),
+    ("gemma3-4b", "long_500k", "global"),
+    ("gemma3-4b", "long_500k", "local"),
 ]
 #: rows the plain version takes at B = 128 (its f32 copies of all 128 would be 34 GB)
 DECODE_PLAIN_ROWS = 8
@@ -220,11 +249,9 @@ DECODE_SMALL = [
     (2, 16, 2, 4097, 128, (4097, 2000), 100),  # grp 8, window
     (2, 6, 2, 700, 256, (10, 700), 5000),  # grp 3, hd 256, window past the cache
 ]
-#: (case, R, D) in bf16: qwen3-1.7b's prefill_32k activations, mamba2-1.3b's serve prefill
-RMS_CASES = [
-    ("qwen3-1.7b prefill_32k", 32 * 32768, 2048),
-    ("mamba2-1.3b serve prefill", 4 * 2048, 2048),
-]
+#: rows of bf16 activations (:func:`rms_cases`): qwen3-1.7b's at prefill_32k
+#: (global batch x sequence), mamba2-1.3b's at the serve phase's prefill
+RMS_ROWS = [("qwen3-1.7b", "prefill_32k"), ("mamba2-1.3b", "serve prefill")]
 #: small cases: ragged widths (no 16-byte access), rows too long for registers
 RMS_SMALL = [(105, 1000), (3, 8192), (7, 4096), (64, 2048), (5, 12288)]
 NP_PHOTON_75M = 74_104_832  # photon-75m's 74,100,992 params padded to 8192-blocks
@@ -273,6 +300,22 @@ COHORT_WIDTHS = [4, 6, 8, 8]  # K per round (the reference CLI's on the CPU)
 #: train_sockets: the async path over the socket runtime (τ = 8, K = 4, M = 2)
 SOCKETS_ARGS = ["--arch", "photon-75m", "--aggregation", "async", "--fused-server",
                 "--straggler-profile", "heavy", "--rounds", "3"]
+#: serve_families: every dense RoPE/GQA decoder and MoE arch at its published
+#: widths, B = 2, a 2048-token prompt, 16 greedy tokens; (arch, layers kept):
+#: None keeps them all, a number keeps the first that many (f32 weights <= 48 GB)
+FAMILY_BATCH, FAMILY_PROMPT = 2, 2048
+FAMILY_DEPTHS = [
+    ("granite-3-2b", None), ("qwen3-1.7b", None), ("gemma3-4b", None),
+    ("deepseek-coder-33b", 20), ("chameleon-34b", 14),
+    ("deepseek-moe-16b", 20), ("llama4-scout-17b-a16e", 4), ("jamba-v0.1-52b", 6),
+]
+FAMILY_WEIGHT_BYTES = 48e9
+JAMBA_SSM_LAYERS = 5  # of its first 6 layers (MMMMAM)
+#: train_moe: deepseek-moe-16b at published widths cut to 2 layers (layer 0
+#: dense, layer 1 MoE), a --fused-server round of 2 clients
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_ARGS = ["--arch", "deepseek-moe-16b", "--fused-server", "--clients", "2",
+                  "--population", "4", "--rounds", "2", "--uplink", "float32"]
 #: (kernel, the --uplink that runs it, line of the TPU kernel, why no library call)
 CODEC_KERNELS = (
     ("topk_mask_ef", "topk", 236,
@@ -304,6 +347,37 @@ def sm_clock_hz() -> float:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return float(out[0]) * 1e6
+
+
+def decode_cases() -> list:
+    """``(case, B, Hq, Hkv, S, hd, window)`` of each ``DECODE_LAYERS`` entry,
+    from its config and input shape: the shape's global batch and sequence
+    (kv_len = S on every row), the arch's heads, head dim and, for a local
+    layer, its sliding window."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+
+    cases = []
+    for arch, shape, layer in DECODE_LAYERS:
+        cfg, sh = get_config(arch), INPUT_SHAPES[shape]
+        assert sh.kind == "decode" and (layer is None) == (cfg.sliding_window is None), arch
+        cases.append((" ".join(x for x in (arch, shape, layer) if x), sh.global_batch,
+                      cfg.n_heads, cfg.n_kv_heads, sh.seq_len, cfg.resolved_head_dim,
+                      cfg.sliding_window if layer == "local" else None))
+    return cases
+
+
+def rms_cases() -> list:
+    """``(case, R, D)`` of each ``RMS_ROWS`` entry: an input shape's global
+    batch x sequence rows, or the serve phase's prefill rows, at the arch's
+    d_model."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+
+    cases = []
+    for arch, shape in RMS_ROWS:
+        sh = INPUT_SHAPES.get(shape)
+        rows = sh.global_batch * sh.seq_len if sh else SERVE_BATCH * SSD_SHAPE["S"]
+        cases.append((f"{arch} {shape}", rows, get_config(arch).d_model))
+    return cases
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1016,14 +1090,14 @@ class _Widths:
         self._F.fused_apply_aggregate = self._orig
 
 
-def _widths_held(widths, phase: str, gen) -> dict:
+def _widths_held(widths, phase: str, gen, Np: int = NP_PHOTON_75M) -> dict:
     """``server_apply`` against its plain version at every width a run gave it."""
     import torch
 
     out = {}
     for C in sorted(set(widths)):
-        r = _server_apply_case("fedavg", False, gen, C=C)
-        out[C] = {k: r[k] for k in ("C", "max_abs_err_params", "max_rel_err_norms",
+        r = _server_apply_case("fedavg", False, gen, C=C, Np=Np)
+        out[C] = {k: r[k] for k in ("C", "Np", "max_abs_err_params", "max_rel_err_norms",
                                     "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
         emit(phase, server_apply_held=out[C])
         torch.cuda.empty_cache()
@@ -1392,9 +1466,9 @@ def ssd_bound(B, S, nh, hd, G, ds, chunk, itemsize: int = 2):
     return nbytes, flops
 
 
-def ssd_case(S: int, gen, ragged: bool = False, dtype=None) -> dict:
-    """Kernel against plain version on the card at mamba2-1.3b's layer shape,
-    bf16 (the tensor-core kernel) unless ``dtype`` says otherwise. y: |Δ| ≤
+def ssd_case(S: int, gen, ragged: bool = False, dtype=None, shape=None) -> dict:
+    """Kernel against plain version on the card at mamba2-1.3b's layer shape
+    (or ``shape``), bf16 unless ``dtype`` says otherwise. y: |Δ| ≤
     rtol·|y| + 1e-5·max|y|, rtol 2⁻⁷ for bf16 (one bf16 ulp: both sides sum in
     f32 in other orders, then round), 0 for f32; final state: |Δ| ≤
     1e-5·max|S|. Bound: bytes over HBM, or flops over the peak of the units
@@ -1404,7 +1478,7 @@ def ssd_case(S: int, gen, ragged: bool = False, dtype=None) -> dict:
     from repro_torch.kernels.ssd_scan import kernel as SK, ops
 
     dtype = dtype or torch.bfloat16
-    sh = dict(SSD_SHAPE, S=S)
+    sh = dict(shape or SSD_SHAPE, S=S)
     B, nh, hd, G, ds, chunk = (sh[k] for k in ("B", "nh", "hd", "G", "ds", "chunk"))
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
     x = rnd(B, S, nh, hd).to(dtype)  # model layout, as ssm_block hands it to ops.ssd
@@ -1433,7 +1507,8 @@ def ssd_case(S: int, gen, ragged: bool = False, dtype=None) -> dict:
     s_err = float((got[1] - want[1]).abs().max())
     s_units = s_err / (1e-5 * float(want[1].abs().max()))
     tc = SK.tensor_core_route(dtype, hd, ds, chunk)
-    r = {"S": S, "padded_S": S + pad, "path": "ops.ssd" if ragged else "ssd_scan_fwd",
+    r = {"B": B, "nh": nh, "hd": hd, "G": G, "ds": ds, "chunk": chunk,
+         "S": S, "padded_S": S + pad, "path": "ops.ssd" if ragged else "ssd_scan_fwd",
          "dtype": str(dtype).replace("torch.", ""),
          "kernel": "tensor cores (wgmma)" if tc else "CUDA cores",
          "max_abs_err_y": y_err, "y_err_in_tolerance_units": y_units,
@@ -1466,8 +1541,24 @@ def phase_ssd_scan() -> dict:
     full = ssd_case(SSD_SHAPE["S"], gen)
     ssd_case(SSD_RAGGED_S, gen, ragged=True)
     full["f32"] = ssd_case(SSD_SHAPE["S"], gen, dtype=torch.float32)
+    # jamba-v0.1-52b's SSM layer (ds 16): bf16 on the CUDA-core kernel
+    jamba = jamba_ssd_shape()
+    full["jamba"] = ssd_case(jamba["S"], gen, shape=jamba)
+    ssd_case(SSD_RAGGED_S, gen, ragged=True, shape=jamba)
+    assert full["jamba"]["kernel"] == "CUDA cores", full["jamba"]
     torch.cuda.empty_cache()
     return full
+
+
+def jamba_ssd_shape() -> dict:
+    """The SSD scan of one jamba-v0.1-52b SSM layer in the serve_families
+    prefill: B and S of that prefill, the config's heads, head dim, groups,
+    state and chunk."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("jamba-v0.1-52b")
+    return dict(B=FAMILY_BATCH, S=FAMILY_PROMPT, nh=cfg.ssm_n_heads, hd=cfg.ssm_head_dim,
+                G=cfg.ssm_n_groups, ds=cfg.ssm_state, chunk=cfg.ssm_chunk)
 
 
 def ulp_units(got, want) -> float:
@@ -1753,7 +1844,7 @@ def phase_flash_decode() -> dict:
     from repro_torch.kernels.flash_decode import kernel as DK
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    full = {case[0]: decode_case(case, gen) for case in DECODE_CASES}
+    full = {case[0]: decode_case(case, gen) for case in decode_cases()}
     for B, Hq, Hkv, S, hd, kv_len, window in DECODE_SMALL:
         for dtype in (torch.bfloat16, torch.float32):
             q = randn_cuda((B, Hq, hd), gen).to(dtype)
@@ -1823,7 +1914,7 @@ def phase_rmsnorm() -> dict:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    full = {name: rms_case(name, R, D, gen) for name, R, D in RMS_CASES}
+    full = {name: rms_case(name, R, D, gen) for name, R, D in rms_cases()}
     for R, D in RMS_SMALL:
         for dtype in (torch.bfloat16, torch.float32):
             x = randn_cuda((R, D), gen).to(dtype)
@@ -1839,15 +1930,17 @@ def phase_rmsnorm() -> dict:
 
 
 def phase_serve_check() -> None:
-    """Reduced mamba2-1.3b, photon-75m and whisper-large-v3 serve the same
-    greedy tokens on the card (the SSD and flash kernels under use_pallas) and
-    on the CPU (their plain versions), float32 compute, the same seed."""
+    """Reduced mamba2-1.3b, photon-75m, whisper-large-v3, gemma3-4b,
+    deepseek-moe-16b and jamba-v0.1-52b serve the same greedy tokens on the
+    card (the SSD and flash kernels under use_pallas) and on the CPU (their
+    plain versions), float32 compute, the same seed."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
 
-    for arch in ("mamba2-1.3b", "photon-75m", "whisper-large-v3"):
+    for arch in ("mamba2-1.3b", "photon-75m", "whisper-large-v3", "gemma3-4b",
+                 "deepseek-moe-16b", "jamba-v0.1-52b"):
         cfg = dataclasses.replace(get_config(arch).reduced(), compute_dtype="float32")
         model = build_model(cfg)
         gen = torch.Generator().manual_seed(3)
@@ -2110,6 +2203,172 @@ def phase_serve_whisper() -> dict:
     return r
 
 
+def family_config(arch: str, layers):
+    """The arch's config at published widths, depth cut to ``layers``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def _jamba_pallas_check(cfg, params, prompt) -> dict:
+    """Jamba's prefill with ``use_pallas`` against the plain path on the card,
+    f32 then bf16 compute: logits, the caches of its first SSM layer (before
+    any MoE layer, so only the kernel moves them) and the greedy token. f32
+    holds the layer's caches to 1e-4; the logits pass through three MoE
+    layers whose routing a last-bit difference may change, so they are
+    reported."""
+    import torch
+    from repro_torch.models import build_model
+
+    out = {}
+    for c in (dataclasses.replace(cfg, compute_dtype="float32"), cfg):
+        model = build_model(c)
+        lk, ck = model.prefill(params, {"tokens": prompt}, use_pallas=True)
+        lp, cp = model.prefill(params, {"tokens": prompt}, use_pallas=False)
+        torch.cuda.synchronize()
+        scale = float(lp.float().abs().max())
+        logit_err = float((lk.float() - lp.float()).abs().max())
+        cache_err = {name: rel_err(ck[0]["pos0"]["mixer"][name], cp[0]["pos0"]["mixer"][name])
+                     for name in ("conv", "ssd")}
+        r = {"compute_dtype": c.compute_dtype, "logits_max_abs_err": logit_err,
+             "logits_max_abs": scale, "logits_rel_err": logit_err / scale,
+             "first_ssm_layer_cache_rel_err": cache_err,
+             "same_greedy_tokens": bool(torch.equal(torch.argmax(lk[:, -1], -1),
+                                                    torch.argmax(lp[:, -1], -1)))}
+        emit("serve_families", arch=cfg.name, check="prefill use_pallas vs plain", **r)
+        assert all(math.isfinite(v) for v in (logit_err, *cache_err.values())), r
+        if c.compute_dtype == "float32":
+            assert max(cache_err.values()) <= 1e-4, r
+        out[c.compute_dtype] = r
+        del lk, ck, lp, cp
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_families() -> dict:
+    """Every dense RoPE/GQA decoder and MoE arch at its published widths
+    (``FAMILY_DEPTHS``): f32 weights from ``Model.init(0, device="cuda")``,
+    bf16 compute, ``generate(use_pallas=True)`` as ``_serve`` runs it. The
+    decoders' attention takes ``sdpa`` (a layer's window is a 0-d tensor), so
+    no kernel launches; jamba launches ``ssd_scan`` once per SSM layer per
+    prefill and never in a decode step."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for arch, layers in FAMILY_DEPTHS:
+        cfg = family_config(arch, layers)
+        assert 4 * cfg.param_count() <= FAMILY_WEIGHT_BYTES, (arch, cfg.param_count())
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        params = model.init(0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        gen = torch.Generator().manual_seed(11)
+        prompt = torch.randint(0, cfg.vocab_size, (FAMILY_BATCH, FAMILY_PROMPT), generator=gen,
+                               dtype=torch.int32).cuda()
+        kinds = cfg.layer_kinds()
+        head = {"arch": arch, "n_layers": cfg.n_layers,
+                "published_layers": family_config(arch, None).n_layers,
+                "layer_kinds": "".join("A" if k.mixer == "attn" else "M" for k in kinds),
+                "moe_layers": sum(k.ffn == "moe" for k in kinds), "d_model": cfg.d_model,
+                "n_params": n_params, "param_count": cfg.param_count(),
+                "f32_weights_GB": 4 * n_params / 1e9, "init_s": init_s}
+        emit("serve_families", **head)
+        check = _jamba_pallas_check(cfg, params, prompt) if cfg.ssm_state else None
+        r = _serve(model, params, prompt, use_pallas=True)
+        n_ssd = sum(k.mixer == "ssm" for k in kinds)
+        summary = {**head, "batch": FAMILY_BATCH, "prompt": FAMILY_PROMPT,
+                   "new_tokens": SERVE_GEN, "prefill_ms": r["prefill_s"] * 1e3,
+                   "decode_step_ms": r["decode_step_ms"], "peak_mem_GB": r["peak_mem_GB"],
+                   "prefill_device_ms": r["prefill_profile"]["device_ms"],
+                   "decode_step_device_ms": r["decode_step_profile"]["device_ms"],
+                   "prefill_device_busy_share": r["prefill_device_busy_share"],
+                   "decode_device_busy_share": r["decode_device_busy_share"],
+                   "launches": r["launches"], "prefill_launches": r["prefill_launches"],
+                   "decode_launches": r["decode_launches"], "tokens": r["tokens"],
+                   "prefill_top_kernels_ms": r["prefill_profile"]["top_kernels_ms"],
+                   "decode_top_kernels_ms": r["decode_step_profile"]["top_kernels_ms"]}
+        emit("serve_families", **summary)
+        others = {n: 0 for n in r["launches"] if n != "ssd_scan"}
+        assert r["launches"] == {"ssd_scan": n_ssd, **others}, r["launches"]
+        assert r["prefill_launches"] == {"ssd_scan": n_ssd, **others}, r["prefill_launches"]
+        assert r["decode_launches"] == {"ssd_scan": 0, **others}, r["decode_launches"]
+        if arch.startswith("jamba"):
+            assert n_ssd == JAMBA_SSM_LAYERS, kinds
+        out[arch] = {**summary, "pallas_check": check}
+        del params, model, r
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_moe() -> dict:
+    """``launch/train.run`` on deepseek-moe-16b at published widths, depth 2
+    (layer 0 dense, layer 1 MoE), ``--fused-server`` over 2 clients for 2
+    rounds: ``server_apply`` once per round at C = 2 over the flat N, no
+    other kernel; loss, val_ppl and (one ``Model.loss`` on the trained
+    params) moe_aux finite; ``server_apply`` then held to its plain version
+    at that (C, N)."""
+    import torch
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_leaves
+
+    cfg = family_config("deepseek-moe-16b", MOE_TRAIN_LAYERS)
+    assert [k.ffn for k in cfg.layer_kinds()] == ["dense", "moe"]
+    args = T.parse_args(MOE_TRAIN_ARGS + ["--device", "cuda"])
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with _Widths() as widths:
+        out = T.run(args, cfg=cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    params = out["state"]["params"]
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    Np = -(-n_params // 8192) * 8192  # the flat buffer, padded to 8192-blocks
+    tokens_per_round = args.clients * args.local_steps * args.batch * args.seq_len
+    for row in out["history"]:
+        emit("train_moe", round=row["round"], loss=row["train_loss"], val_ppl=row["val_ppl"],
+             pseudo_grad_norm=row["pseudo_grad_norm"], seconds=row["seconds"],
+             tokens_per_s=tokens_per_round / row["seconds"])
+    gen = torch.Generator().manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (args.batch, args.seq_len), generator=gen,
+                         dtype=torch.int32).cuda()
+    with torch.no_grad():
+        loss, metrics = out["model"].loss(params, {"tokens": toks})
+    r = {"n_layers": cfg.n_layers, "n_params": n_params, "param_count": cfg.param_count(),
+         "f32_weights_GB": 4 * n_params / 1e9, "Np": Np, "clients": args.clients,
+         "total_seconds": seconds, "round_seconds": [row["seconds"] for row in out["history"]],
+         "peak_mem_GB": peak, "peak_over_weights": peak / (4 * n_params / 1e9),
+         "launches": launches, "widths": widths.calls,
+         "final_loss": float(loss), "final_moe_aux": float(metrics["moe_aux"])}
+    emit("train_moe", **r)
+    assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(params)), "non-finite params"
+    for row in out["history"]:
+        assert math.isfinite(row["train_loss"]) and math.isfinite(row["val_ppl"]), row
+    assert math.isfinite(r["final_loss"]) and math.isfinite(r["final_moe_aux"]), r
+    want = {name: args.rounds if name == "server_apply" else 0 for name in launches}
+    assert launches == want, (launches, want)
+    assert widths.calls == [args.clients] * args.rounds, widths.calls
+    assert Np * args.clients > 2 ** 31, Np  # C·N past int32: the kernel indexes in int64
+    del out, params, loss, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    r["held"] = _widths_held(widths.calls, "train_moe",
+                             torch.Generator(device="cuda").manual_seed(13), Np=Np)
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -2147,6 +2406,8 @@ def main() -> int:
     mamba2 = phase_serve_mamba2()
     phase_serve_photon()
     whisper = phase_serve_whisper()
+    families = phase_serve_families()
+    moe = phase_train_moe()
 
     main_case = sa[("fedavg", False)]  # the main path: FedAvg, no DP noise, C = 4
 
@@ -2183,6 +2444,9 @@ def main() -> int:
         + [cohort["held"][C] for C in sorted(cohort["held"])],
         "socket_launches": {u: sockets[u]["launches"]["server_apply"]
                             for u in ("float32", "int8")},
+        # deepseek-moe-16b's --fused-server rounds (train_moe): C = 2 over N ≈ 1.09 B
+        "moe_launches": moe["launches"]["server_apply"],
+        "moe_case": moe["held"][moe["clients"]],
     }]
     for name, uplink, line, note in CODEC_KERNELS:
         r = codecs[COHORT][name]
@@ -2213,6 +2477,11 @@ def main() -> int:
         "library_note": "no single PyTorch call computes the SSD chunk scan",
         "device_ms": ssd["device_ms"], "host_enqueue_ms": ssd["host_enqueue_ms"],
         "f32_ms": ssd["f32"]["kernel_ms"], "f32_bound_ms": ssd["f32"]["bound_ms"],
+        # jamba-v0.1-52b's SSM layer (ds 16, the CUDA-core kernel in bf16)
+        "jamba_launches": families["jamba-v0.1-52b"]["launches"]["ssd_scan"],
+        "jamba_case": {k: ssd["jamba"][k] for k in (
+            "B", "S", "nh", "hd", "G", "ds", "chunk", "dtype", "kernel", "max_abs_err_y",
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "bound_units")},
     })
     kernels.append({
         "name": "flash_attention", "route": "cuda",

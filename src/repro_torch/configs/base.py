@@ -14,6 +14,22 @@ from typing import Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class LayerKind:
     """Static description of one layer's structure.
 
@@ -152,6 +168,21 @@ class ModelConfig:
         return [LayerKind(mixer="attn", ffn="dense") for _ in range(self.n_encoder_layers)]
 
     # ------------------------------------------------------------------
+    def supports_shape(self, shape_name: str) -> Tuple[bool, str]:
+        """Whether this arch runs the given input shape (long_500k gating)."""
+        shape = INPUT_SHAPES[shape_name]
+        if shape.name == "long_500k":
+            sub_quadratic = (
+                self.family in ("ssm", "hybrid")
+                or self.sliding_window is not None
+            )
+            if not sub_quadratic:
+                return False, "full-attention arch: long_500k skipped (see DESIGN.md)"
+        if self.enc_dec and shape.name == "long_500k":
+            return False, "enc-dec context model caps far below 500k; skipped"
+        return True, ""
+
+    # ------------------------------------------------------------------
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks); used for 6ND."""
         d, hd = self.d_model, self.resolved_head_dim
@@ -204,6 +235,16 @@ class ModelConfig:
         total += d
         return total
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        dff = self.moe_d_ff or self.d_ff
+        inactive_per_moe_layer = (self.n_experts - self.moe_top_k) * 3 * d * dff
+        n_moe_layers = sum(1 for k in self.layer_kinds() if k.ffn == "moe")
+        return self.param_count() - n_moe_layers * inactive_per_moe_layer
+
     # ------------------------------------------------------------------
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: <=2 layers, d_model<=512, <=4 experts."""
@@ -249,10 +290,7 @@ def get_config(name: str) -> ModelConfig:
     from repro_torch import configs as _  # noqa: F401  (registration side effects)
 
     if name not in _REGISTRY:
-        raise KeyError(
-            f"unknown arch '{name}'; the port knows {sorted(_REGISTRY)} "
-            f"(other families are queued in ROADMAP.md)"
-        )
+        raise KeyError(f"unknown arch '{name}'; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
@@ -260,3 +298,17 @@ def list_configs() -> List[str]:
     from repro_torch import configs as _  # noqa: F401
 
     return sorted(_REGISTRY)
+
+
+ASSIGNED_ARCHS = [
+    "granite-3-2b",
+    "qwen3-1.7b",
+    "mamba2-1.3b",
+    "jamba-v0.1-52b",
+    "deepseek-moe-16b",
+    "llama4-scout-17b-a16e",
+    "whisper-large-v3",
+    "chameleon-34b",
+    "deepseek-coder-33b",
+    "gemma3-4b",
+]

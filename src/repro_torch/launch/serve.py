@@ -31,8 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.launch.train import resolve_device
 from repro_torch.models import build_model
 
 

@@ -83,6 +83,7 @@ import time
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.control import CohortTuner, FederationController, KnobUpdate, StalenessGovernor
@@ -119,13 +120,6 @@ from repro_torch.metrics import (
 from repro_torch.models import build_model
 from repro_torch.obs import JsonlSink, MetricsServer, Tracer
 from repro_torch.runtime import ChaosConfig, ClientWorker, FederationDriver, SocketBackend
-
-
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` or ``cpu``; cuda without a visible card is an error."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda was asked for, but torch sees no CUDA device")
-    return torch.device(name)
 
 
 def _chaos_from_args(args):

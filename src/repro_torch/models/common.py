@@ -2,14 +2,17 @@
 positional encodings — the counterpart of ``repro.models.common``.
 
 Every parameter is declared once as a ``ParamDesc(shape, init)``; ``init_params``
-materializes a tree of them with a ``torch.Generator`` per leaf, seeded from
-the run seed and the leaf's key path (the same path-keyed scheme the JAX
+materializes a tree of them with a ``torch.Generator`` per leaf (per chunk of a
+large leaf), seeded from the run seed and the leaf's key path (the same path-keyed scheme the JAX
 package uses with ``fold_in``; the numbers differ because the generators do).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -35,33 +38,74 @@ def zlib_hash(s: str) -> int:
     return zlib.crc32(s.encode()) & 0x7FFFFFFF
 
 
-def _materialize(desc: ParamDesc, gen: torch.Generator, dtype) -> torch.Tensor:
+#: a leaf of more elements than this is drawn in chunks of it, each chunk from
+#: its own generator, so one large leaf keeps every host core busy
+INIT_CHUNK = 1 << 24
+
+
+def _materialize(desc: ParamDesc, gen: torch.Generator, numel: int) -> torch.Tensor:
+    """``numel`` f32 values of a zeros, ones or SSM leaf's initializer, flat
+    (``init_params`` draws the normal leaves into its buffers)."""
     if desc.init == "zeros":
-        return torch.zeros(desc.shape, dtype=dtype)
+        return torch.zeros(numel)
     if desc.init == "ones":
-        return torch.ones(desc.shape, dtype=dtype)
-    if desc.init in ("normal", "embed"):
-        x = torch.randn(desc.shape, generator=gen, dtype=torch.float32)
-        return (desc.scale * x).to(dtype)
+        return torch.ones(numel)
     if desc.init == "ssm_a":  # A_log ~ log(Uniform[1, 16])
-        u = torch.rand(desc.shape, generator=gen, dtype=torch.float32)
-        return torch.log(1.0 + 15.0 * u).to(dtype)
+        u = torch.rand(numel, generator=gen, dtype=torch.float32)
+        return torch.log(1.0 + 15.0 * u)
     if desc.init == "ssm_dt":  # dt bias: softplus^-1 of Uniform[1e-3, 1e-1]
-        dt = 1e-3 + (1e-1 - 1e-3) * torch.rand(desc.shape, generator=gen, dtype=torch.float32)
-        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+        dt = 1e-3 + (1e-1 - 1e-3) * torch.rand(numel, generator=gen, dtype=torch.float32)
+        return dt + torch.log(-torch.expm1(-dt))
     raise ValueError(f"unknown init {desc.init!r}")
 
 
 def init_params(seed: int, desc_tree, dtype=torch.float32, device="cpu"):
     """Materialize a ParamDesc tree: leaf ``path`` draws from a CPU generator
-    seeded with ``(seed, crc32(path))``, so values do not depend on the device
-    or on the other leaves. On the ``meta`` device only shapes are made."""
-    if torch.device(device).type == "meta":
+    seeded with ``(seed, crc32(path))`` — a leaf of more than ``INIT_CHUNK``
+    elements draws chunk ``i`` from ``(seed, crc32(f"{path}#{i}"))`` — so
+    values do not depend on the device or on the other leaves. The chunks are
+    drawn on a pool of host threads, each into its own buffer, and copied
+    into the leaves on ``device``. On the ``meta`` device only shapes are
+    made."""
+    device = torch.device(device)
+    if device.type == "meta":
         return tree_map(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"), desc_tree)
-    out = []
-    for path, desc in flatten_with_paths(desc_tree):
-        gen = torch.Generator().manual_seed((int(seed) << 32) ^ zlib_hash(path))
-        out.append(_materialize(desc, gen, dtype).to(device))
+    items = flatten_with_paths(desc_tree)
+    out = [torch.empty(desc.shape, dtype=dtype, device=device) for _, desc in items]
+    jobs = []
+    for i, (path, desc) in enumerate(items):
+        n = out[i].numel()
+        if n <= INIT_CHUNK:
+            jobs.append((i, path, 0, n))
+        else:
+            jobs += [(i, f"{path}#{c}", a, min(a + INIT_CHUNK, n))
+                     for c, a in enumerate(range(0, n, INIT_CHUNK))]
+
+    cuda = device.type == "cuda"
+    local = threading.local()  # each pool thread's host buffer (pinned for a card) and stream
+
+    def fill(job):
+        i, key, a, b = job
+        desc, dst = items[i][1], out[i].view(-1)[a:b]
+        gen = torch.Generator().manual_seed((int(seed) << 32) ^ zlib_hash(key))
+        if not hasattr(local, "buf"):
+            local.buf = torch.empty(INIT_CHUNK, dtype=torch.float32, pin_memory=cuda)
+            local.stream = torch.cuda.Stream(device) if cuda else None
+        if desc.init in ("normal", "embed"):
+            src = torch.randn(b - a, generator=gen, out=local.buf[:b - a]).mul_(desc.scale)
+        else:
+            src = _materialize(desc, gen, b - a)
+        if cuda:
+            with torch.cuda.stream(local.stream):
+                dst.copy_(src, non_blocking=True)
+            local.stream.synchronize()  # the buffer is refilled next
+        else:
+            dst.copy_(src)
+
+    if cuda:  # the leaves' memory may still be in use by queued work
+        torch.cuda.synchronize(device)
+    with ThreadPoolExecutor(max_workers=min(len(jobs), os.cpu_count() or 1) or 1) as pool:
+        list(pool.map(fill, jobs))
     return tree_unflatten(tree_flatten(desc_tree)[1], out)
 
 

@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.models.common import init_params
@@ -77,16 +78,18 @@ class Model:
         self.cfg = cfg
         self._desc = transformer.model_desc(cfg)
 
-    def init(self, seed: int, device="cpu", dtype=None):
+    def init(self, seed: int, device="cuda", dtype=None):
+        """The weights on ``device`` (the card unless the caller asks for the
+        CPU, or ``meta`` for shapes only); cuda without a card raises."""
         dtype = dtype or getattr(torch, self.cfg.param_dtype)
-        return init_params(seed, self._desc, dtype, device)
+        return init_params(seed, self._desc, dtype, resolve_device(device))
 
     def loss(self, params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token LM loss. batch['tokens'] (B,S); optional batch['loss_mask']."""
         tokens = batch["tokens"].long()
-        h, _, _ = transformer.forward(self.cfg, params, tokens,
-                                      audio_embed=batch.get("audio_embed"), logits_mode="hidden")
+        h, aux, _ = transformer.forward(self.cfg, params, tokens,
+                                        audio_embed=batch.get("audio_embed"), logits_mode="hidden")
         labels = torch.cat(
             [tokens[:, 1:], torch.full((tokens.shape[0], 1), -1, dtype=tokens.dtype,
                                        device=tokens.device)], dim=1
@@ -94,6 +97,9 @@ class Model:
         if "loss_mask" in batch:
             labels = torch.where(batch["loss_mask"] > 0, labels, torch.full_like(labels, -1))
         loss, metrics = chunked_cross_entropy(self.cfg, params, h, labels, self.cfg.z_loss)
+        if self.cfg.is_moe:
+            loss = loss + self.cfg.router_aux_coef * aux
+            metrics["moe_aux"] = aux
         metrics["loss"] = loss
         return loss, metrics
 

@@ -1,7 +1,8 @@
 """Pattern-aware transformer engine — the counterpart of
-``repro.models.transformer`` without MoE: decoder stacks of attention or SSM
-layers, and whisper's encoder-decoder (a non-causal audio encoder, learned
-decoder positions, cross-attention with a cache written at prefill).
+``repro.models.transformer``: decoder stacks of attention or SSM layers with
+dense or mixture-of-experts FFNs, and whisper's encoder-decoder (a
+non-causal audio encoder, learned decoder positions, cross-attention with a
+cache written at prefill).
 
 Layers are grouped into *segments* by ``plan_segments`` exactly as the
 reference groups them: a short prefix plus a periodic body whose parameters
@@ -80,11 +81,6 @@ def plan_segments(kinds: List[LayerKind], max_period: int = 12) -> List[SegmentP
 
 
 def _layer_desc(cfg: ModelConfig, kind: LayerKind) -> dict:
-    if kind.ffn == "moe":
-        raise NotImplementedError(
-            f"layer kind {kind} is not ported yet: the port has dense-FFN and SSM "
-            f"layers, no MoE (ROADMAP.md queue A)"
-        )
     d = {"norm1": norm_desc(cfg)}
     if kind.mixer == "attn":
         d["mixer"] = attn_mod.attn_desc(cfg)
@@ -96,6 +92,9 @@ def _layer_desc(cfg: ModelConfig, kind: LayerKind) -> dict:
     if kind.ffn == "dense":
         d["norm2"] = norm_desc(cfg)
         d["ffn"] = moe_mod.dense_ffn_desc(cfg, cfg.d_ff)
+    elif kind.ffn == "moe":
+        d["norm2"] = norm_desc(cfg)
+        d["ffn"] = moe_mod.moe_ffn_desc(cfg)
     return d
 
 
@@ -176,7 +175,10 @@ def _apply_layer(
     enc_out: Optional[torch.Tensor],
     decode: bool,
     use_pallas: bool,
-) -> Tuple[torch.Tensor, Optional[dict]]:
+) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """Returns ``(h, new_cache, aux)``; ``aux`` is the MoE layer's
+    load-balance loss (the number 0.0 for other layers)."""
+    aux = 0.0
     new_cache: Dict[str, Any] = {}
     x = apply_norm(cfg, p["norm1"], h)
     mixer_cache = cache.get("mixer") if cache else None
@@ -208,10 +210,14 @@ def _apply_layer(
                 new_cache["cross"] = cc
         h = h + ca
 
-    if kind.ffn == "dense":
+    if kind.ffn != "none":
         x2 = apply_norm(cfg, p["norm2"], h)
-        h = h + moe_mod.dense_ffn(cfg, p["ffn"], x2)
-    return h, (new_cache if (cache is not None or decode) else None)
+        if kind.ffn == "dense":
+            f = moe_mod.dense_ffn(cfg, p["ffn"], x2)
+        else:
+            f, aux = moe_mod.moe_ffn(cfg, p["ffn"], x2)
+        h = h + f
+    return h, (new_cache if (cache is not None or decode) else None), aux
 
 
 def _cross_attend_cached(p: dict, x: torch.Tensor, cross_cache: dict) -> torch.Tensor:
@@ -236,10 +242,12 @@ def _apply_segment(
     decode: bool,
     use_pallas: bool,
 ):
-    """Runs the body ``n_repeat`` times; returns ``(h, new_cache)`` with the
-    per-repeat caches stacked on a leading axis, as the reference's scan."""
+    """Runs the body ``n_repeat`` times; returns ``(h, new_cache, aux)`` with
+    the per-repeat caches stacked on a leading axis, as the reference's scan,
+    and the layers' MoE losses summed per repeat, then over repeats."""
     windows = seg.window_array(all_kinds)  # (n_repeat, period)
     new_caches = []
+    aux_acc = 0.0
     for r in range(seg.n_repeat):
         if seg.n_repeat == 1:
             params_r, cache_r = seg_params, seg_cache
@@ -247,19 +255,22 @@ def _apply_segment(
             params_r = tree_map(lambda x: x[r], seg_params)
             cache_r = None if seg_cache is None else tree_map(lambda x: x[r], seg_cache)
         new_cache_r = {}
+        aux_r = 0.0
         for pidx, kind in enumerate(seg.kinds):
             key = f"pos{pidx}"
-            h, nc = _apply_layer(
+            h, nc, aux = _apply_layer(
                 cfg, kind, params_r[key], h, window=windows[r, pidx], positions=positions,
                 cache=cache_r.get(key) if cache_r else None, cache_index=cache_index,
                 enc_out=enc_out, decode=decode, use_pallas=use_pallas,
             )
             if nc is not None:
                 new_cache_r[key] = nc
+            aux_r = aux_r + aux
         new_caches.append(new_cache_r)
+        aux_acc = aux_acc + aux_r
     if seg.n_repeat == 1:
-        return h, (new_caches[0] or None)
-    return h, tree_stack(new_caches)
+        return h, (new_caches[0] or None), aux_acc
+    return h, tree_stack(new_caches), aux_acc
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +320,8 @@ def forward(
     logits_mode: str = "full",  # 'full' | 'last' | 'hidden' (return pre-head h)
 ):
     """Returns ``(logits (B,S,V) | hidden (B,S,D), aux, new_cache)``; ``aux``
-    is the MoE auxiliary loss, 0 here; ``new_cache`` is None in train mode."""
+    is the MoE auxiliary loss summed over layers (0 without MoE layers);
+    ``new_cache`` is None in train mode."""
     assert mode in ("train", "prefill", "decode")
     decode = mode == "decode"
     B, S = tokens.shape
@@ -338,25 +350,27 @@ def forward(
     if mode == "prefill" and cache is None:
         cache = _prefill_placeholder_cache(segs)
 
+    aux_total = 0.0
     new_cache = [] if (cache is not None or decode) else None
     for seg, seg_params, seg_cache in zip(
         segs, params["segments"], cache if cache is not None else [None] * len(segs)
     ):
-        h, seg_new_cache = _apply_segment(
+        h, seg_new_cache, aux = _apply_segment(
             cfg, seg, seg_params, h, all_kinds=all_kinds, positions=positions,
             seg_cache=seg_cache, cache_index=cache_index, enc_out=enc_out, decode=decode,
             use_pallas=use_pallas,
         )
+        aux_total = aux_total + aux
         if new_cache is not None:
             new_cache.append(seg_new_cache)
 
     h = apply_norm(cfg, params["final_norm"], h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux_total = torch.as_tensor(aux_total, dtype=torch.float32, device=h.device)
     if logits_mode == "hidden":
-        return h, aux, new_cache
+        return h, aux_total, new_cache
     if logits_mode == "last":
         h = h[:, -1:]
-    return project_logits(cfg, params, h), aux, new_cache
+    return project_logits(cfg, params, h), aux_total, new_cache
 
 
 def project_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:

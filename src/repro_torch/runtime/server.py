@@ -46,6 +46,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.obs.tracer import get_tracer
 from repro_torch.runtime.chaos import ChaosConfig, ChaosMonkey
 from repro_torch.runtime.driver import Assignment, ClientBackend, ClientResult
@@ -70,12 +71,12 @@ class SocketBackend(ClientBackend):
         io_timeout: float = 30.0,
         chaos: Optional[ChaosConfig] = None,
         tracer=None,
-        device="cpu",
+        device="cuda",
     ):
         self.lease_timeout = lease_timeout
         self.io_timeout = io_timeout
         self.stream_states = stream_states  # index = population client id
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.tracer = get_tracer(tracer)
         self.clock = FrameClock()  # host seconds spent framing, all connections
         self._monkey = (

@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.compression import Codec
 from repro_torch.core.federated import FederatedConfig
 from repro_torch.core.sampler import ParticipationConfig
@@ -68,7 +69,7 @@ class ClientWorker:
         backoff: Optional[Backoff] = None,
         chaos: Optional[ChaosConfig] = None,
         tracer=None,
-        device="cpu",
+        device="cuda",
     ):
         if (streams is None) == (make_batches is None):
             raise ValueError("pass exactly one of streams= or make_batches=")
@@ -81,7 +82,7 @@ class ClientWorker:
         self.io_timeout = io_timeout
         self.poll_interval = poll_interval
         self.backoff = backoff or Backoff()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._stateful = codec is not None and codec.stateful
         self._codec = codec
         self._partial = pcfg.partial_progress

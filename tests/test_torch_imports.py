@@ -80,6 +80,11 @@ def test_source_imports_neither_jax_nor_repro(path):
     "repro_torch.control", "repro_torch.control.policy", "repro_torch.control.controller",
     "repro_torch.runtime", "repro_torch.runtime.transport", "repro_torch.runtime.chaos",
     "repro_torch.runtime.driver", "repro_torch.runtime.server", "repro_torch.runtime.worker",
+    "repro_torch.models.moe", "repro_torch.configs.granite_3_2b",
+    "repro_torch.configs.qwen3_1_7b", "repro_torch.configs.gemma3_4b",
+    "repro_torch.configs.deepseek_coder_33b", "repro_torch.configs.chameleon_34b",
+    "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.llama4_scout_17b_a16e",
+    "repro_torch.configs.jamba_v0_1_52b",
 ])
 def test_serving_slice_modules_are_among_the_scanned(module):
     assert module in {_module_name(p) for p in SOURCES if p.suffix == ".py" and PKG in p.parents}

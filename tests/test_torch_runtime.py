@@ -304,7 +304,7 @@ def _start_workers(fed, pcfg, port, codec, n=2, **kw):
     # a worker that finds the server gone gives up within seconds, not a minute
     workers = [ClientWorker(_quad, fed, pcfg, make_batches=_batches, port=port, codec=codec,
                             name=f"w{i}", io_timeout=5.0, backoff=Backoff(give_up_after=2.0),
-                            **kw) for i in range(n)]
+                            device="cpu", **kw) for i in range(n)]
     threads = [threading.Thread(target=w.run, daemon=True) for w in workers]
     for t in threads:
         t.start()
@@ -323,7 +323,7 @@ def test_socket_run_with_worker_threads_is_bitwise_in_process(uplink):
     ref, h_ref = _reference(uplink)
     fed, acfg, pcfg = _cfgs()
     codec = _codec(uplink)
-    backend = SocketBackend(port=0, lease_timeout=10.0, io_timeout=5.0)
+    backend = SocketBackend(port=0, lease_timeout=10.0, io_timeout=5.0, device="cpu")
     workers, threads = _start_workers(fed, pcfg, backend.port, codec)
     try:
         drv = FederationDriver(backend, fed, acfg, pcfg, **_kw(codec))
@@ -341,7 +341,7 @@ def test_expired_lease_is_redispatched_to_a_live_worker():
     ref, h_ref = _reference("topk", n=3)
     fed, acfg, pcfg = _cfgs()
     codec = _codec("topk")
-    backend = SocketBackend(port=0, lease_timeout=0.4, io_timeout=5.0)
+    backend = SocketBackend(port=0, lease_timeout=0.4, io_timeout=5.0, device="cpu")
     drv = FederationDriver(backend, fed, acfg, pcfg, **_kw(codec))
     vulture = connect("127.0.0.1", backend.port, timeout=5.0)
     send_msg(vulture, "pull", {"worker": "vulture"})
@@ -363,7 +363,7 @@ def test_server_kill_and_resume_is_bitwise():
     ref, h_ref = _reference("topk", n=5)
     fed, acfg, pcfg = _cfgs()
     codec = _codec("topk")
-    backend = SocketBackend(port=0, lease_timeout=10.0, io_timeout=5.0)
+    backend = SocketBackend(port=0, lease_timeout=10.0, io_timeout=5.0, device="cpu")
     _, threads = _start_workers(fed, pcfg, backend.port, codec)
     try:
         drv = FederationDriver(backend, fed, acfg, pcfg, **_kw(codec))
@@ -373,7 +373,7 @@ def test_server_kill_and_resume_is_bitwise():
         _stop(backend, threads)
     del drv, backend
     codec = _codec("topk")
-    backend2 = SocketBackend(port=0, lease_timeout=10.0, io_timeout=5.0)
+    backend2 = SocketBackend(port=0, lease_timeout=10.0, io_timeout=5.0, device="cpu")
     _, threads2 = _start_workers(fed, pcfg, backend2.port, codec)
     try:
         drv2 = FederationDriver(backend2, fed, acfg, pcfg, seed=3, codec=codec,
@@ -441,12 +441,12 @@ def test_traced_socket_run_counts_bytes_and_passes_the_check(tmp_path):
     fed, acfg, pcfg = _cfgs()
     codec = _codec("int8")
     tracer = Tracer(JsonlSink(str(tmp_path / "server.jsonl")), proc="server", trace_id="t")
-    backend = SocketBackend(port=0, lease_timeout=10.0, io_timeout=5.0, tracer=tracer)
+    backend = SocketBackend(port=0, lease_timeout=10.0, io_timeout=5.0, device="cpu", tracer=tracer)
     wtracers = [Tracer(JsonlSink(str(tmp_path / f"w{i}.jsonl")), proc=f"w{i}", trace_id="t")
                 for i in range(2)]
     workers = [ClientWorker(_quad, fed, pcfg, make_batches=_batches, port=backend.port,
                             codec=codec, name=f"w{i}", io_timeout=5.0, tracer=wtracers[i],
-                            backoff=Backoff(give_up_after=2.0)) for i in range(2)]
+                            backoff=Backoff(give_up_after=2.0), device="cpu") for i in range(2)]
     threads = [threading.Thread(target=w.run, daemon=True) for w in workers]
     for t in threads:
         t.start()
@@ -568,7 +568,7 @@ def test_every_leaf_of_a_params_snapshot_crosses_once(tmp_path):
     frame's array list is the params' leaves (plus the key), each written once."""
     fed, acfg, pcfg = _cfgs()
     codec = _codec("topk")
-    backend = SocketBackend(port=0, lease_timeout=10.0, io_timeout=5.0)
+    backend = SocketBackend(port=0, lease_timeout=10.0, io_timeout=5.0, device="cpu")
     try:
         FederationDriver(backend, fed, acfg, pcfg, **_kw(codec))
         sock = connect("127.0.0.1", backend.port, timeout=5.0)

@@ -10,14 +10,14 @@ and per-row norms lift a small row's error to the largest row's scale
 (measured ≤ 8.6e-7 at prefill: ``python tests/torch_parity.py``). Greedy
 tokens: equal.
 """
-import dataclasses
 import io
 from contextlib import redirect_stdout
 
 import numpy as np
 import pytest
 
-from torch_parity import assert_close, jax_flat, jax_to_torch, torch_flat
+from torch_parity import assert_close, j_merge, jax_flat, torch_flat
+from torch_parity import family_pair as pair, family_tokens as prompt
 
 torch = pytest.importorskip("torch")
 
@@ -49,31 +49,6 @@ def caches_close(t_cache, j_cache):
     assert sorted(got) == sorted(want)
     for k in want:
         close(got[k], want[k], what=k)
-
-
-def pair(arch, **overrides):
-    """Reference and port models of the reduced arch, with the reference's
-    weights in both."""
-    kw = dict(compute_dtype="float32", **overrides)
-    jcfg = dataclasses.replace(j_get_config(arch).reduced(), **kw)
-    tcfg = dataclasses.replace(t_get_config(arch).reduced(), **kw)
-    jm, tm = j_build(jcfg), t_build(tcfg)
-    jp = jm.init(jax.random.PRNGKey(0))
-    return jm, tm, jp, jax_to_torch(jp)
-
-
-def prompt(cfg, B, S, seed=0):
-    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-
-
-def j_merge(dst, src):
-    """The reference ``generate``'s cache merge (a closure there)."""
-    def leaf(d, s):
-        s = s.astype(d.dtype)
-        if d.shape == s.shape:
-            return s
-        return jnp.pad(s, [(0, a - b) for a, b in zip(d.shape, s.shape)])
-    return jax.tree_util.tree_map(leaf, dst, src)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -256,7 +231,7 @@ def test_mamba2_checkpoints_cross_over(tmp_path):
     from repro_torch.checkpoint import load_pytree as t_load, save_pytree as t_save
 
     jm, tm, jp, _ = pair("mamba2-1.3b")
-    tp = tm.init(7)  # the port's own draws, not the reference's
+    tp = tm.init(7, device="cpu")  # the port's own draws, not the reference's
     t_save(str(tmp_path / "t.npz"), tp)
     back = j_load(str(tmp_path / "t.npz"), jp)
     for k, v in jax_flat(back).items():

@@ -71,7 +71,7 @@ def test_reduced_params_carry_across_by_key_path():
     ``cross_attn`` (no qk-norm) and ``norm_cross`` — and a carried tree is
     the reference's values."""
     jm, tm, jp, tp = pair(ARCH)
-    own = {k: tuple(v.shape) for k, v in flatten_with_paths(tm.init(0))}
+    own = {k: tuple(v.shape) for k, v in flatten_with_paths(tm.init(0, device="cpu"))}
     assert own == {k: v.shape for k, v in jax_flat(jp).items()}
     for key in ("['pos_embed']", "['encoder']['audio_pos']",
                 "['encoder']['segments'][0]['pos0']['mixer']['wq']",
@@ -206,7 +206,7 @@ def test_whisper_checkpoints_cross_over(tmp_path):
     from repro_torch.checkpoint import load_pytree as t_load, save_pytree as t_save
 
     jm, tm, jp, _ = pair(ARCH)
-    tp = tm.init(7)  # the port's own draws, not the reference's
+    tp = tm.init(7, device="cpu")  # the port's own draws, not the reference's
     t_save(str(tmp_path / "t.npz"), tp)
     back = jax_flat(j_load(str(tmp_path / "t.npz"), jp))
     assert all(np.array_equal(v, torch_flat(tp)[k]) for k, v in back.items())

@@ -17,6 +17,8 @@ no stated tolerance could absorb. One thread computes every element alike.
 """
 from __future__ import annotations
 
+import csv
+
 import numpy as np
 import pytest
 
@@ -72,6 +74,203 @@ def assert_metrics_close(got: dict, want: dict, *, rtol: float, atol: float = 1e
             continue
         assert k in got, k
         assert_close(float(got[k]), float(v), atol=atol, rtol=rtol, what=k)
+
+
+def j_merge(dst, src):
+    """The reference ``generate``'s cache merge (a closure there)."""
+    import jax
+    import jax.numpy as jnp
+
+    def leaf(d, s):
+        s = s.astype(d.dtype)
+        if d.shape == s.shape:
+            return s
+        return jnp.pad(s, [(0, a - b) for a, b in zip(d.shape, s.shape)])
+    return jax.tree_util.tree_map(leaf, dst, src)
+
+
+# ---------------------------------------------------------------------------
+# Model families at reduced size: loss, gradient, prefill and decode steps
+# ---------------------------------------------------------------------------
+
+#: |Δ| ≤ FAMILY_TOL·max|ref| over each tensor (logits, cache leaves, a
+#: gradient against the largest gradient entry of the tree), and loss and
+#: moe_aux to FAMILY_TOL relative, all at compute_dtype="float32": the
+#: packages take the same f32 products of width ≤ 512 in other orders
+#: (~6e-7 relative each), and per-row norms lift a small row's error to the
+#: largest row's scale
+FAMILY_TOL = 1e-5
+
+
+def family_pair(arch, **overrides):
+    """Reference and port models of the reduced arch at f32 compute, with
+    the reference's weights in both."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import get_config as j_cfg
+    from repro.models import build_model as j_build
+    from repro_torch.configs import get_config as t_cfg
+    from repro_torch.models import build_model as t_build
+
+    kw = dict(compute_dtype="float32", **overrides)
+    jm = j_build(dataclasses.replace(j_cfg(arch).reduced(), **kw))
+    tm = t_build(dataclasses.replace(t_cfg(arch).reduced(), **kw))
+    jp = jm.init(jax.random.PRNGKey(0))
+    return jm, tm, jp, jax_to_torch(jp)
+
+
+def family_tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def close_to_max(got, want, what="", rtol=0.0):
+    """|got - want| ≤ FAMILY_TOL·max|want| + rtol·|want| over the tensor."""
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want, np.float32)
+    assert_close(got, want, atol=FAMILY_TOL * (float(np.abs(want).max()) or 1.0), rtol=rtol,
+                 what=what)
+
+
+def check_family_loss_and_grad(arch, B=2, S=48, seed=1) -> dict:
+    """``Model.loss`` and its gradient in both packages on the same tokens;
+    returns the port's metrics."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    jm, tm, jp, tp = family_pair(arch)
+    toks = family_tokens(jm.cfg, B, S, seed)
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
+        jp, {"tokens": jnp.asarray(toks)})
+    leaves, treedef = tree_flatten(tp)
+    leaves = [x.requires_grad_(True) for x in leaves]
+    tl, tmet = tm.loss(tree_unflatten(treedef, leaves), {"tokens": torch.from_numpy(toks)})
+    tg = torch_flat(tree_unflatten(treedef, list(torch.autograd.grad(tl, leaves))))
+    assert sorted(tmet) == sorted(jmet), (sorted(tmet), sorted(jmet))
+    for k in ("loss", "ce", "moe_aux"):
+        if k in jmet:
+            assert_close(float(tmet[k].detach()), float(jmet[k]), rtol=FAMILY_TOL, what=k)
+    jg = jax_flat(jg)
+    assert sorted(tg) == sorted(jg)
+    g_max = max(float(np.abs(v).max()) for v in jg.values())
+    for k in jg:
+        assert_close(tg[k], jg[k], atol=FAMILY_TOL * g_max, what=f"grad {k}")
+    return {k: float(v.detach()) for k, v in tmet.items()}
+
+
+def check_family_prefill_and_decode(arch, B=2, S=40, n_decode=4, seed=2,
+                                    use_pallas=False, **overrides):
+    """Prefill logits and caches from the same tokens, then ``n_decode``
+    decode steps fed the reference's greedy tokens. Each step starts both
+    packages from the reference's cache (grown to S + n_decode), leaf for
+    leaf in its dtype: a bf16 entry the two computed within FAMILY_TOL may
+    round to neighbouring bf16 values, which would otherwise move every later
+    step. Every step's logits and new cache are held."""
+    import jax
+    import jax.numpy as jnp
+
+    jm, tm, jp, tp = family_pair(arch, **overrides)
+    toks = family_tokens(jm.cfg, B, S, seed)
+    jl, jc = jax.jit(lambda p, t: jm.prefill(p, {"tokens": t}, use_pallas=use_pallas))(
+        jp, jnp.asarray(toks))
+    with torch.no_grad():
+        tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, use_pallas=use_pallas)
+    assert tuple(tl.shape) == jl.shape == (B, 1, jm.cfg.vocab_size)
+    close_to_max(tl, jl, "prefill logits")
+    jf, tf = jax_flat(jc), torch_flat(tc)
+    assert sorted(tf) == sorted(jf)
+    for k in jf:
+        close_to_max(tf[k], jf[k], f"prefill cache {k}")
+
+    max_len = S + n_decode
+    jc = j_merge(jm.init_cache(B, max_len), jc)
+    j_step = jax.jit(lambda p, c, t, i: jm.decode_step(p, c, t, i))
+    tok = np.asarray(jnp.argmax(jl[:, -1], -1)).astype(np.int32)[:, None]
+    for i in range(n_decode):
+        tc = carried_cache(jc)
+        jl, jc = j_step(jp, jc, jnp.asarray(tok), jnp.int32(S + i))
+        with torch.no_grad():
+            tl, tc = tm.decode_step(tp, tc, torch.from_numpy(tok), S + i)
+        close_to_max(tl, jl, f"decode step {i} logits")
+        bf16 = bf16_paths(jc)
+        jf, tf = jax_flat(jc), torch_flat(tc)
+        assert sorted(tf) == sorted(jf)
+        for k in jf:  # the entries written this step round to bf16 (2⁻⁷·|x|)
+            close_to_max(tf[k], jf[k], f"decode step {i} cache {k}",
+                         rtol=2.0 ** -7 if k in bf16 else 0.0)
+        tok = np.asarray(jnp.argmax(jl[:, 0], -1)).astype(np.int32)[:, None]
+
+
+def bf16_paths(jax_tree) -> set:
+    import jax
+    import jax.numpy as jnp
+
+    return {jax.tree_util.keystr(p) for p, leaf in jax.tree_util.tree_flatten_with_path(jax_tree)[0]
+            if leaf.dtype == jnp.bfloat16}
+
+
+def carried_cache(jax_cache):
+    """A reference cache as the port's tree, each leaf in its reference dtype."""
+    from repro_torch.tree import flatten_with_paths, params_from_numpy, tree_flatten, tree_unflatten
+
+    bf16 = bf16_paths(jax_cache)
+    tree = params_from_numpy(jax_flat(jax_cache), "cpu")
+    leaves = [t.to(torch.bfloat16) if k in bf16 else t for k, t in flatten_with_paths(tree)]
+    return tree_unflatten(tree_flatten(tree)[1], leaves)
+
+
+#: the train CLIs' flags in the checkpoint round trips (default bf16 compute,
+#: so rows agree loosely: train_loss rel 2e-2, val_ppl rel 5e-2)
+CLI_COMMON = ["--reduced", "--local-steps", "2", "--clients", "2", "--population", "4",
+              "--seq-len", "64", "--fused-server"]
+
+
+def csv_rows(path):
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def cli_resume_round_trip(arch, tmp_path):
+    """The reference writes round 0; each CLI resumes a copy for round 1 and
+    their rows agree; the port's round-1 checkpoint has the reference's keys,
+    shapes and dtypes, and the reference CLI resumes it for round 2."""
+    import shutil
+
+    from repro.checkpoint import load_pytree
+    from repro.launch import train as jt
+    from repro_torch.launch import train as tt
+
+    args = CLI_COMMON + ["--arch", arch]
+    ck = tmp_path / "ck"
+    jt.run(jt.parse_args(args + ["--rounds", "1", "--ckpt-dir", str(ck)]))
+    shutil.copytree(ck, tmp_path / "ck_j")
+    shutil.copytree(ck, tmp_path / "ck_t")
+    j_out = jt.run(jt.parse_args(args + ["--rounds", "2", "--ckpt-dir", str(tmp_path / "ck_j"),
+                                         "--resume", "--log", str(tmp_path / "j.csv")]))
+    tt.run(tt.parse_args(args + ["--rounds", "2", "--ckpt-dir", str(tmp_path / "ck_t"),
+                                 "--resume", "--log", str(tmp_path / "t.csv"),
+                                 "--device", "cpu"]))
+    (jr,), (tr,) = csv_rows(tmp_path / "j.csv"), csv_rows(tmp_path / "t.csv")
+    assert float(jr["round"]) == float(tr["round"]) == 1.0
+    for k in ("selected", "contributors", "effective_k", "uplink_bytes_per_client"):
+        assert jr[k] == tr[k], k
+    assert_close(float(tr["train_loss"]), float(jr["train_loss"]), rtol=2e-2, what="train_loss")
+    assert_close(float(tr["val_ppl"]), float(jr["val_ppl"]), rtol=5e-2, what="val_ppl")
+    t_npz = tmp_path / "ck_t" / "round_000001" / "server.npz"
+    j_npz = tmp_path / "ck_j" / "round_000001" / "server.npz"
+    with np.load(t_npz) as t, np.load(j_npz) as j:
+        assert sorted(t.files) == sorted(j.files)
+        for k in j.files:
+            assert t[k].shape == j[k].shape and t[k].dtype == j[k].dtype, k
+    load_pytree(str(t_npz), j_out["state"])
+    back = jt.run(jt.parse_args(args + ["--rounds", "3", "--ckpt-dir", str(tmp_path / "ck_t"),
+                                        "--resume"]))
+    assert [int(r["round"]) for r in back["history"]] == [2]
+    assert np.isfinite(back["history"][0]["train_loss"])
+    return jr, tr
 
 
 def _report() -> None:
