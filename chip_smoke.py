@@ -172,6 +172,27 @@ Phases, one JSON line each:
                 no other kernel; finite loss, val_ppl and moe_aux; peak
                 memory and round seconds; server_apply held to its plain
                 version at that (C, N)
+  examples      the port's five examples (``repro_torch.examples``) through their
+                ``main`` on the card, the kernel counts zeroed just before each
+                run and read just after: quickstart and serve_batched as the
+                reference runs them (no kernel); heterogeneous_federation
+                --fused-server --uplink topk --rounds 2 (server_apply and
+                topk_mask_ef once per round, nothing else) and --aggregation
+                async --uplink int8 --rounds 2 --fused-server (launches held to
+                the driver's n_client_phases / n_admissions / n_flushes); each
+                codec launch of those two runs then held bitwise to its plain
+                version on the inputs it was given (one case per shape), and
+                server_apply at each (C, Np) they gave it;
+                pretrain_e2e --full --fused-server in a fresh temporary
+                directory (photon-125m at published widths, 4 rounds x 100
+                local steps of 4 clients, B = 4, S = 512: server_apply once per
+                round at C = 4, a finite loss; round seconds, tokens/s, peak
+                memory; server_apply then held to its plain version at C = 4
+                over photon-125m's flat N); then socket_federation --demo round,
+                kill-resume, chaos and corrupt with --fused-server, four
+                processes started together (each with its own server and
+                workers), each to exit 0 with its PASS lines, round and
+                kill-resume bitwise
   kernels       one line {"kernels": [...]} with every kernel's numbers; the
                 fedcore kernels' entries add the async path's launches
                 (``async_launches``), the Byzantine run's
@@ -184,7 +205,14 @@ Phases, one JSON line each:
                 width's kernel / plain / bound times (``width_cases``);
                 ``server_apply`` adds train_moe's launches and (C, N) case
                 (``moe_launches``, ``moe_case``), ``ssd_scan`` jamba's
-                launches and layer case (``jamba_launches``, ``jamba_case``)
+                launches and layer case (``jamba_launches``, ``jamba_case``);
+                ``server_apply``, ``topk_mask_ef``, ``int8_quant`` and
+                ``int8_dequant`` add the examples' launches
+                (``examples_launches``), ``server_apply`` its photon-125m case
+                (``examples_case``) and heterogeneous_federation's widths
+                (``examples_hetero_cases``), the three codecs their cases on
+                the inputs heterogeneous_federation gave them
+                (``examples_cases``, bitwise)
 
 No model path launches flash_decode or rmsnorm (none does in the JAX package
 either), and no decoder layer launches flash_attention (its window is a 0-d
@@ -316,6 +344,18 @@ JAMBA_SSM_LAYERS = 5  # of its first 6 layers (MMMMAM)
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_ARGS = ["--arch", "deepseek-moe-16b", "--fused-server", "--clients", "2",
                   "--population", "4", "--rounds", "2", "--uplink", "float32"]
+#: examples: heterogeneous_federation's two fused runs (sync, async) and the
+#: kernels the sync one launches once per round; pretrain_e2e's full-width run
+#: (photon-125m, 4 rounds of K = 4) and the socket demos, all --fused-server
+EXAMPLE_HETERO = {
+    "sync": ["--fused-server", "--uplink", "topk", "--rounds", "2"],
+    "async": ["--aggregation", "async", "--uplink", "int8", "--rounds", "2", "--fused-server"],
+}
+EXAMPLE_SYNC_KERNELS = ("server_apply", "topk_mask_ef")
+EXAMPLE_E2E_ARGS = ["--full", "--fused-server"]
+E2E_PROFILE_STEPS = 8  # one client's local steps profiled at pretrain_e2e's (B, S)
+SOCKET_DEMOS = ("round", "kill-resume", "chaos", "corrupt")
+SOCKET_DEMO_TIMEOUT = 600
 #: (kernel, the --uplink that runs it, line of the TPU kernel, why no library call)
 CODEC_KERNELS = (
     ("topk_mask_ef", "topk", 236,
@@ -1066,28 +1106,89 @@ def phase_centralized() -> dict:
 # ---------------------------------------------------------------------------
 
 
-class _Widths:
-    """Records the cohort width C of every ``fused_apply_aggregate`` call
-    (one ``server_apply`` launch each on the card) while installed."""
+#: the bytes each codec kernel moves over a (C, Np) buffer (as in _codec_cases)
+CODEC_BYTES = {"topk_mask_ef": lambda C, Np: 12 * C * Np + 4 * C,
+               "int8_quant": lambda C, Np: 5 * C * Np,
+               "int8_dequant": lambda C, Np: 5 * C * Np}
+
+
+class _KernelInputs:
+    """Records what the fedcore wrappers are given while installed: the
+    (C, Np) of every ``server_apply`` launch (``calls``: the widths a
+    controller or a CLI picked), and for each codec kernel the shape of every
+    launch with a copy of the inputs of the first launch at each shape, so
+    that they can be held to the plain version afterwards. The calls go
+    through ``ops.K``; the wrappers count their launches as before."""
 
     def __init__(self):
-        self.calls = []
+        self.server_apply = []  # (C, Np) per launch
+        self.codec_shapes = {name: [] for name in CODEC_BYTES}
+        self.codec_args = {name: {} for name in CODEC_BYTES}  # shape -> cloned args
 
     def __enter__(self):
-        import repro_torch.kernels.fedcore as F
-        from repro_torch.tree import tree_leaves
+        from repro_torch.kernels.fedcore import ops
 
-        self._F, self._orig = F, F.fused_apply_aggregate
+        self._ops, self._K, rec = ops, ops.K, self
+        K = self._K
 
-        def recorded(fed, state, deltas, client_weights=None, codec=None):
-            self.calls.append(int(tree_leaves(deltas)[0].shape[0]))
-            return self._orig(fed, state, deltas, client_weights=client_weights, codec=codec)
+        def clone(a):
+            return a.clone() if hasattr(a, "clone") else a
 
-        F.fused_apply_aggregate = recorded
+        class Proxy:
+            def __getattr__(self, name):
+                return getattr(K, name)
+
+            def server_apply(self, deltas2d, *args, **kw):
+                rec.server_apply.append(tuple(deltas2d.shape))
+                return K.server_apply(deltas2d, *args, **kw)
+
+        def codec(name):
+            def call(*args):
+                key = (*args[0].shape, *(tuple(args[2]) if len(args) > 2 else ()))
+                rec.codec_shapes[name].append(key)
+                rec.codec_args[name].setdefault(key, tuple(clone(a) for a in args))
+                return getattr(K, name)(*args)
+            return staticmethod(call)
+
+        for name in CODEC_BYTES:
+            setattr(Proxy, name, codec(name))
+        ops.K = Proxy()
         return self
 
     def __exit__(self, *exc):
-        self._F.fused_apply_aggregate = self._orig
+        self._ops.K = self._K
+
+    @property
+    def calls(self):
+        """The cohort width C of every ``server_apply`` launch."""
+        return [C for C, _ in self.server_apply]
+
+    def held(self, phase: str, gen) -> dict:
+        """Each codec kernel against its plain version, bitwise, on the inputs
+        the run gave it (one case per shape), and ``server_apply`` at every
+        (C, Np) of the run."""
+        import torch
+        from repro_torch.kernels.fedcore import kernel as K
+
+        out = {}
+        for name, cases in self.codec_args.items():
+            out[name] = []
+            for key, args in cases.items():
+                C, Np = args[0].shape
+                extra = {"leaves": len(args[2]) - 1} if len(args) > 2 else {}
+                r = _codec_case(name, getattr(K, name), getattr(K, name + "_plain"), args,
+                                CODEC_BYTES[name](C, Np), {"run": phase, **extra})
+                out[name].append({k: r[k] for k in ("C", "Np", "bitwise", "max_abs_err",
+                                                    "kernel_ms", "plain_ms", "bound_ms",
+                                                    "bound_by")} | extra)
+            cases.clear()
+            torch.cuda.empty_cache()
+        by_np = {}
+        for C, Np in self.server_apply:
+            by_np.setdefault(Np, []).append(C)
+        out["server_apply"] = [case for Np, Cs in sorted(by_np.items())
+                               for case in _widths_held(Cs, phase, gen, Np=Np).values()]
+        return out
 
 
 def _widths_held(widths, phase: str, gen, Np: int = NP_PHOTON_75M) -> dict:
@@ -1113,7 +1214,7 @@ def phase_train_governed(uplink: str) -> dict:
     from repro_torch.core.aggregator import ASYNC_KERNEL_COUNTERS
     from repro_torch.tree import tree_leaves
 
-    with _Widths() as w:
+    with _KernelInputs() as w:
         out, launches, seconds, peak = _run_counted(GOVERNED_ARGS + ["--uplink", uplink])
     drv = out["driver"]
     counts = {"n_flushes": drv.n_flushes, "n_client_phases": drv.n_client_phases,
@@ -1153,7 +1254,7 @@ def phase_train_cohort() -> dict:
     import torch
     from repro_torch.tree import tree_leaves
 
-    with _Widths() as w:
+    with _KernelInputs() as w:
         out, launches, seconds, peak = _run_counted(COHORT_ARGS)
     hist = out["history"]
     for row, C in zip(hist, w.calls):
@@ -2327,7 +2428,7 @@ def phase_train_moe() -> dict:
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
-    with _Widths() as widths:
+    with _KernelInputs() as widths:
         out = T.run(args, cfg=cfg)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2366,6 +2467,206 @@ def phase_train_moe() -> dict:
     torch.cuda.empty_cache()
     r["held"] = _widths_held(widths.calls, "train_moe",
                              torch.Generator(device="cuda").manual_seed(13), Np=Np)
+    return r
+
+
+def _example(mod, argv):
+    """``mod.main(argv)`` on the card, its stdout captured, the kernel counts
+    zeroed just before and read just after; ``(result, rows, launches,
+    seconds)``."""
+    import contextlib
+    import io
+
+    import torch
+
+    out = io.StringIO()
+    gc.collect()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = mod.main(list(argv) + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return result, out.getvalue().splitlines(), read_launches(), seconds
+
+
+def _socket_demos() -> dict:
+    """The four ``socket_federation`` demos with ``--fused-server``, each a
+    process of its own (with its server and worker processes under it), all
+    started together; each must exit 0 with its PASS lines. A demo that
+    outlives its timeout is killed with every process of its group."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), PYTHONUNBUFFERED="1",
+               OMP_NUM_THREADS="1")
+    procs = {demo: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.socket_federation", "--demo", demo,
+         "--fused-server"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT, start_new_session=True) for demo in SOCKET_DEMOS}
+    t0 = time.perf_counter()
+    results = {}
+    try:
+        for demo, proc in procs.items():
+            left = max(1.0, SOCKET_DEMO_TIMEOUT - (time.perf_counter() - t0))
+            log, _ = proc.communicate(timeout=left)
+            passes = [l for l in log.splitlines() if l.startswith("PASS")]
+            results[demo] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                             "pass_lines": passes}
+            emit("examples", example="socket_federation", demo=demo, **results[demo])
+            assert proc.returncode == 0 and passes, (demo, log[-4000:])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+    assert "bitwise-equal" in results["round"]["pass_lines"][0], results["round"]
+    assert "bitwise-equal" in results["kill-resume"]["pass_lines"][0], results["kill-resume"]
+    return results
+
+
+def _client_steps_profile(model, params, args) -> dict:
+    """One client's ``E2E_PROFILE_STEPS`` local AdamW steps (``run_clients``
+    at C = 1) at the run's (B, S) on its trained params, once to warm up,
+    then under ``torch.profiler``: wall and device ms a step, busy share."""
+    import torch
+    from repro_torch.core import FederatedConfig, InnerOptConfig, run_clients
+
+    steps = E2E_PROFILE_STEPS
+    fed = FederatedConfig(clients_per_round=1, local_steps=steps,
+                          inner=InnerOptConfig(lr_max=args.inner_lr, warmup_steps=1,
+                                               total_steps=steps))
+    gen = torch.Generator().manual_seed(15)
+    toks = torch.randint(0, model.cfg.vocab_size, (steps, 1, args.batch, args.seq_len),
+                         generator=gen, dtype=torch.int32).cuda()
+    state = {"params": params, "round": 0}
+
+    def client_phase():
+        run_clients(model.loss, fed, state, {"tokens": toks})
+
+    client_phase()
+    prof = profile_device(client_phase)
+    return {"steps": steps, "wall_ms_per_step": prof["profiled_wall_ms"] / steps,
+            "device_ms_per_step": prof["device_ms"] / steps,
+            "busy_share": prof["device_ms"] / prof["profiled_wall_ms"],
+            "top_kernels_ms": prof["top_kernels_ms"]}
+
+
+def _examples_heterogeneous() -> dict:
+    """heterogeneous_federation's sync and async ``--fused-server`` runs: the
+    launches against the rounds and the driver's counters, finite params,
+    then every fedcore launch of the two runs held to its plain version at
+    the shapes (and, for the codecs, on the inputs) that the runs gave it."""
+    import torch
+    from repro_torch.core.aggregator import ASYNC_KERNEL_COUNTERS
+    from repro_torch.examples import heterogeneous_federation
+    from repro_torch.tree import tree_leaves
+
+    r = {}
+    inputs = _KernelInputs()
+    with inputs:
+        agg, rows, launches, seconds = _example(heterogeneous_federation,
+                                                EXAMPLE_HETERO["sync"])
+    rounds = int(EXAMPLE_HETERO["sync"][EXAMPLE_HETERO["sync"].index("--rounds") + 1])
+    emit("examples", example="heterogeneous_federation sync", rows=rows, launches=launches,
+         seconds=seconds)
+    want = {n: rounds if n in EXAMPLE_SYNC_KERNELS else 0 for n in launches}
+    assert launches == want, (launches, want)
+    assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(agg.state["params"]))
+    r["heterogeneous_sync"] = {"launches": launches, "seconds": seconds}
+
+    with inputs:
+        drv, rows, launches, seconds = _example(heterogeneous_federation,
+                                                EXAMPLE_HETERO["async"])
+    counts = {"n_flushes": drv.n_flushes, "n_client_phases": drv.n_client_phases,
+              "n_admissions": drv.n_admissions}
+    emit("examples", example="heterogeneous_federation async", rows=rows, launches=launches,
+         seconds=seconds, **counts)
+    counters = ASYNC_KERNEL_COUNTERS["int8"]
+    want = {n: counts[counters[n]] if n in counters else 0 for n in launches}
+    assert launches == want and counts["n_flushes"] == rounds, (launches, want, counts)
+    assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(drv.state["params"]))
+    r["heterogeneous_async"] = {"launches": launches, "seconds": seconds, **counts}
+    del agg, drv
+    assert len(inputs.server_apply) == sum(
+        r[run]["launches"]["server_apply"] for run in ("heterogeneous_sync", "heterogeneous_async"))
+    for name, shapes in inputs.codec_shapes.items():
+        assert len(shapes) == sum(r[run]["launches"][name]
+                                  for run in ("heterogeneous_sync", "heterogeneous_async")), name
+    r["heterogeneous_held"] = held = inputs.held("examples",
+                                                 torch.Generator(device="cuda").manual_seed(15))
+    emit("examples", example="heterogeneous_federation held", **held)
+    assert all(held[name] and all(c["bitwise"] for c in held[name]) for name in CODEC_BYTES)
+    return r
+
+
+def phase_examples() -> dict:
+    """The port's five examples through their ``main`` on the card (see the
+    module docstring): quickstart and serve_batched launch no kernel;
+    heterogeneous_federation's sync run launches ``server_apply`` and
+    ``topk_mask_ef`` once per round, its async run each fedcore kernel as
+    often as the driver counts it; pretrain_e2e --full launches
+    ``server_apply`` once per round at C = 4 over photon-125m, held then to
+    its plain version at that width; the socket demos pass."""
+    import tempfile
+
+    import torch
+    from repro_torch.examples import pretrain_e2e, quickstart, serve_batched
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_leaves
+
+    r = {}
+    for name, mod in (("quickstart", quickstart), ("serve_batched", serve_batched)):
+        _, rows, launches, seconds = _example(mod, [])
+        emit("examples", example=name, rows=rows, launches=launches, seconds=seconds)
+        assert all(n == 0 for n in launches.values()), (name, launches)
+        assert len(rows) == {"quickstart": 6, "serve_batched": 3}[name], rows
+        r[name] = {"launches": launches, "seconds": seconds}
+
+    r.update(_examples_heterogeneous())
+
+    # pretrain_e2e --full in a fresh directory: its --resume would pick up a
+    # results/e2e_ckpt left there and train nothing
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            with _KernelInputs() as widths:
+                out, rows, launches, seconds = _example(pretrain_e2e, EXAMPLE_E2E_ARGS)
+        finally:
+            os.chdir(cwd)
+    args = T.parse_args(pretrain_e2e.train_argv(pretrain_e2e.example_args(EXAMPLE_E2E_ARGS)))
+    hist = out["history"]
+    n_params = sum(x.numel() for x in tree_leaves(out["state"]["params"]))
+    Np = -(-n_params // 8192) * 8192
+    tokens_per_round = args.clients * args.local_steps * args.batch * args.seq_len
+    for row in hist:
+        emit("examples", example="pretrain_e2e --full", round=row["round"],
+             loss=row["train_loss"], val_ppl=row["val_ppl"], seconds=row["seconds"],
+             tokens_per_s=tokens_per_round / row["seconds"])
+    e2e = {"arch": args.arch, "n_params": n_params, "Np": Np, "clients": args.clients,
+           "rounds": len(hist), "tokens_per_round": tokens_per_round, "total_seconds": seconds,
+           "round_seconds": [row["seconds"] for row in hist],
+           "final_loss": hist[-1]["train_loss"] if hist else None, "final_line": rows[-1],
+           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+           "widths": widths.calls}
+    emit("examples", example="pretrain_e2e --full", **e2e)
+    assert len(hist) == args.rounds and rows[-1].startswith("final: "), rows[-1:]
+    assert all(math.isfinite(row["train_loss"]) and math.isfinite(row["val_ppl"])
+               for row in hist), hist
+    want = {n: args.rounds if n == "server_apply" else 0 for n in launches}
+    assert launches == want, (launches, want)
+    assert widths.calls == [args.clients] * args.rounds, widths.calls
+    e2e["client_steps"] = _client_steps_profile(out["model"], out["state"]["params"], args)
+    emit("examples", example="pretrain_e2e --full", client_steps=e2e["client_steps"])
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e["held"] = _widths_held(widths.calls, "examples",
+                               torch.Generator(device="cuda").manual_seed(14), Np=Np)
+    r["pretrain_e2e"] = e2e
+    r["socket_federation"] = _socket_demos()
     return r
 
 
@@ -2408,8 +2709,13 @@ def main() -> int:
     whisper = phase_serve_whisper()
     families = phase_serve_families()
     moe = phase_train_moe()
+    examples = phase_examples()
 
     main_case = sa[("fedavg", False)]  # the main path: FedAvg, no DP noise, C = 4
+
+    def examples_launches(name):  # the in-process example runs' launches
+        return {run: examples[run]["launches"][name]
+                for run in ("heterogeneous_sync", "heterogeneous_async", "pretrain_e2e")}
 
     def async_case(r, err_key="max_abs_err"):  # the kernel at the async path's shape
         return {"C": r["C"], "max_abs_err": r[err_key], "ms": r["kernel_ms"],
@@ -2447,6 +2753,11 @@ def main() -> int:
         # deepseek-moe-16b's --fused-server rounds (train_moe): C = 2 over N ≈ 1.09 B
         "moe_launches": moe["launches"]["server_apply"],
         "moe_case": moe["held"][moe["clients"]],
+        # the examples (phase examples); pretrain_e2e --full: C = 4 over photon-125m
+        "examples_launches": examples_launches("server_apply"),
+        "examples_case": examples["pretrain_e2e"]["held"][examples["pretrain_e2e"]["clients"]],
+        # heterogeneous_federation's sync and async runs: each (C, Np) held
+        "examples_hetero_cases": examples["heterogeneous_held"]["server_apply"],
     }]
     for name, uplink, line, note in CODEC_KERNELS:
         r = codecs[COHORT][name]
@@ -2460,6 +2771,10 @@ def main() -> int:
             "async_case": async_case(codecs[ASYNC_COHORT][name]),
             "byzantine_launches": byz_launches["int8"][name],
         })
+        if name != "sr_bf16":  # no example runs the bf16 uplink
+            kernels[-1]["examples_launches"] = examples_launches(name)
+            # heterogeneous_federation's launches, on the inputs they were given
+            kernels[-1]["examples_cases"] = examples["heterogeneous_held"][name]
         if uplink == "int8":
             kernels[-1]["governed_launches"] = governed["int8"]["launches"][name]
             kernels[-1]["socket_launches"] = sockets["int8"]["launches"][name]

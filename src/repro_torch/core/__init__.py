@@ -47,7 +47,7 @@ from repro_torch.core.federated import (  # noqa: F401
     run_clients,
     tile_rng,
 )
-from repro_torch.core.inner_opt import InnerOptConfig, cosine_lr  # noqa: F401
+from repro_torch.core.inner_opt import InnerOptConfig, cosine_lr, global_norm  # noqa: F401
 from repro_torch.core.outer_opt import OuterOptConfig  # noqa: F401
 from repro_torch.core.robust import (  # noqa: F401
     CORRUPT_KINDS,
@@ -71,5 +71,11 @@ from repro_torch.core.sampler import (  # noqa: F401
     ParticipationConfig,
     ParticipationPlan,
     StragglerProfile,
+    client_example_counts,
+    client_speeds,
+    dirichlet_popularity,
+    markov_availability,
+    participation_counts,
     plan_round,
+    sample_round,
 )

@@ -72,6 +72,7 @@ from repro_torch.core.federated import (
     apply_aggregate_partial,
     combine_tile_metrics,
     federated_round,
+    federated_round_with_uplink,  # noqa: F401  (the reference's public name)
     fold_in,
     init_federated_state,
     run_client_tile,

@@ -46,6 +46,7 @@ from repro_torch.core.federated import (
     _weigh_clients,
     _weighted_mean_clients,
 )
+from repro_torch.tree import global_norm  # noqa: F401  (the reference module's public name)
 from repro_torch.tree import tree_leaves, tree_map
 
 #: the ``--robust-agg`` choices — 'none' is the plain weighted mean

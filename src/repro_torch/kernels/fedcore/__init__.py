@@ -10,9 +10,11 @@ from repro_torch.kernels.fedcore.ops import (  # noqa: F401
     dtype_group_indices,
     fused_apply_aggregate,
     pack_client_leaves,
+    pack_flat,
     pack_leaves,
     server_apply_bytes,
     topk_encode_bytes,
     unpack_client_leaves,
+    unpack_flat,
     unpack_leaves,
 )

@@ -32,6 +32,7 @@ from repro_torch.core.compression import (
     Int8Codec,
     TopKCodec,
     _topk_index_nbytes,
+    init_error_feedback,  # noqa: F401  (the reference module's public name)
     int8_payload_leaves,
     int8_scale,
 )
@@ -92,6 +93,18 @@ def unpack_leaves(flat: torch.Tensor, spec: FlatSpec) -> List[torch.Tensor]:
     """Views of ``flat`` in the leaves' shapes."""
     return [flat[off:off + _leaf_size(shape)].view(shape)
             for shape, off in zip(spec.shapes, spec.offsets)]
+
+
+def pack_flat(tree, pad_multiple: int = 1) -> Tuple[torch.Tensor, Any, FlatSpec]:
+    """Tree-level packing of a single-dtype tree: ``(flat (N_pad,), treedef,
+    spec)``; :func:`unpack_flat` inverts it bitwise."""
+    leaves, treedef = tree_flatten(tree)
+    flat, spec = pack_leaves(leaves, pad_multiple)
+    return flat, treedef, spec
+
+
+def unpack_flat(flat: torch.Tensor, treedef, spec: FlatSpec):
+    return tree_unflatten(treedef, unpack_leaves(flat, spec))
 
 
 def pack_client_leaves(leaves: Sequence[torch.Tensor], c: int, pad_multiple: int = 1

@@ -14,7 +14,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_decode.kernel import _run
+# flash_decode_fwd: a public name of the reference's module
+from repro_torch.kernels.flash_decode.kernel import _run, flash_decode_fwd  # noqa: F401
 
 
 def flash_decode(

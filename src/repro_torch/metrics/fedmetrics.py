@@ -1,8 +1,9 @@
-"""Federated training monitors, the ported part of ``repro.metrics.fedmetrics``:
-perplexity, held-out evaluation, the per-round participation,
+"""Federated training monitors, the counterpart of ``repro.metrics.fedmetrics``:
+perplexity, held-out evaluation, the elastic-participation monitors
+(effective cohort, weight entropy), the per-round participation,
 partial-progress and uplink-cost rows, the async buffer's staleness summary
-and simulated speedup, the control loop's window statistics and the CSV
-logger."""
+and simulated speedup, the control loop's window statistics, the logits'
+L2 probe and the CSV logger."""
 from __future__ import annotations
 
 import csv
@@ -14,10 +15,28 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_leaves
 
 
 def perplexity(loss_ce: float) -> float:
     return float(math.exp(min(30.0, loss_ce)))
+
+
+def effective_clients(weights) -> int:
+    """K_eff: clients with nonzero aggregation weight this round."""
+    return int(np.count_nonzero(np.asarray(weights)))
+
+
+def weight_entropy(weights) -> float:
+    """Shannon entropy (nats) of the normalized aggregation weights, in
+    float64: log(K) for a balanced round, falling as few clients dominate.
+    The round's own in-device monitor is ``aggregation_metrics``'."""
+    w = np.asarray(weights, np.float64)
+    w = w[w > 0]
+    if w.size == 0:
+        return 0.0
+    p = w / w.sum()
+    return float(-(p * np.log(p)).sum())
 
 
 def participation_metrics(plan) -> Dict[str, float]:
@@ -169,14 +188,25 @@ def wallclock_speedup(sync_time: float, async_time: float) -> float:
 
 @torch.no_grad()
 def evaluate_perplexity(model, params, stream, batches: int = 4, batch_size: int = 4,
-                        device="cpu") -> float:
-    """Held-out perplexity on a validation stream (server-side evaluation, §4.2)."""
+                        device=None) -> float:
+    """Held-out perplexity on a validation stream (server-side evaluation,
+    §4.2), on ``device`` (default: where the params are)."""
+    if device is None:
+        device = next(iter(tree_leaves(params))).device
     total, n = 0.0, 0
     for _ in range(batches):
         tokens = torch.from_numpy(stream.next_batch(batch_size)).to(device)
         total += float(model.loss(params, {"tokens": tokens})[1]["ce"])
         n += 1
     return perplexity(total / n)
+
+
+@torch.no_grad()
+def activation_l2_probe(model, params, batch) -> float:
+    """RMS of the output logits — the divergence leading indicator the paper
+    tracks (Fig 5)."""
+    logits, _, _ = model.forward(params, batch)
+    return float(torch.sqrt(torch.mean(torch.square(logits.float()))))
 
 
 class MetricLogger:

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import ParamDesc, alibi_slopes, apply_rope, rmsnorm
 
@@ -214,3 +215,13 @@ def attention(
         out = sdpa(q, k, v, mask, bias)
 
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), new_cache
+
+
+def empty_cache_desc(cfg, batch: int, max_len: int, dtype, device="cuda") -> dict:
+    """The zero KV cache of one attention layer: ``k`` and ``v`` of
+    (batch, max_len, n_kv_heads, head_dim) in ``dtype`` on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -25,6 +25,42 @@ from repro_torch.models import transformer
 from repro_torch.models.common import init_params
 
 
+def _ce_sums(logits: torch.Tensor, labels: torch.Tensor):
+    """Σ nll, Σ lse², Σ correct and the count over the labels ≥ 0 (float32)."""
+    logits = logits.float()
+    labels = labels.long()
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, lse - ll, torch.zeros_like(ll))
+    zsq = torch.where(valid, torch.square(lse), torch.zeros_like(lse))
+    acc = valid & (torch.argmax(logits, dim=-1) == safe)
+    return nll.sum(), zsq.sum(), acc.sum().float(), valid.sum()
+
+
+def _ce_finish(nll_sum, zsq_sum, acc_sum, n_valid, z_loss: float):
+    n_valid_f = torch.clamp(n_valid, min=1).float()
+    ce = nll_sum / n_valid_f
+    metrics = {"ce": ce, "n_tokens": n_valid_f, "accuracy": acc_sum / n_valid_f}
+    loss = ce
+    if z_loss:
+        zl = z_loss * zsq_sum / n_valid_f
+        loss = loss + zl
+        metrics["z_loss"] = zl
+    return loss, metrics
+
+
+def cross_entropy(
+    logits: torch.Tensor,  # (B, S, V)
+    labels: torch.Tensor,  # (B, S) integer; -1 = ignore
+    z_loss: float = 0.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Softmax cross-entropy over the labels ≥ 0: ``(loss, {"ce", "n_tokens",
+    "z_loss" (when ``z_loss``), "accuracy"})``, loss = ce + z_loss·mean(lse²)."""
+    return _ce_finish(*_ce_sums(logits, labels), z_loss)
+
+
 def chunked_cross_entropy(
     cfg,
     params,
@@ -32,7 +68,7 @@ def chunked_cross_entropy(
     labels: torch.Tensor,  # (B, S) integer; -1 = ignore
     z_loss: float = 0.0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """LM head + softmax cross-entropy over sequence chunks, so the
+    """LM head + :func:`cross_entropy` over sequence chunks, so the
     (B, chunk, V) logits block is the largest vocab-sized temporary."""
     B, S, D = h.shape
     V = cfg.vocab_size
@@ -45,32 +81,11 @@ def chunked_cross_entropy(
         chunk = 1
 
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
-    nll_sum, zsq_sum, acc_sum = zero, zero, zero
-    n_valid = torch.zeros((), dtype=torch.int64, device=h.device)
+    sums = [zero, zero, zero, torch.zeros((), dtype=torch.int64, device=h.device)]
     for c0 in range(0, S, chunk):
-        lab = labels[:, c0:c0 + chunk].long()
-        logits = transformer.project_logits(cfg, params, h[:, c0:c0 + chunk]).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        valid = lab >= 0
-        safe = torch.where(valid, lab, torch.zeros_like(lab))
-        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
-        nll = torch.where(valid, lse - ll, torch.zeros_like(ll))
-        zsq = torch.where(valid, torch.square(lse), torch.zeros_like(lse))
-        acc = valid & (torch.argmax(logits, dim=-1) == safe)
-        nll_sum = nll_sum + nll.sum()
-        zsq_sum = zsq_sum + zsq.sum()
-        acc_sum = acc_sum + acc.sum().float()
-        n_valid = n_valid + valid.sum()
-
-    n_valid_f = torch.clamp(n_valid, min=1).float()
-    ce = nll_sum / n_valid_f
-    metrics = {"ce": ce, "n_tokens": n_valid_f, "accuracy": acc_sum / n_valid_f}
-    loss = ce
-    if z_loss:
-        zl = z_loss * zsq_sum / n_valid_f
-        loss = loss + zl
-        metrics["z_loss"] = zl
-    return loss, metrics
+        logits = transformer.project_logits(cfg, params, h[:, c0:c0 + chunk])
+        sums = [a + b for a, b in zip(sums, _ce_sums(logits, labels[:, c0:c0 + chunk]))]
+    return _ce_finish(*sums, z_loss)
 
 
 class Model:

@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.aggregator import AsyncBufferAggregator
+from repro_torch.core.async_agg import AsyncAggConfig  # noqa: F401  (the reference's public name)
 from repro_torch.core.compression import Codec
 from repro_torch.core.federated import FederatedConfig, run_clients
 from repro_torch.core.sampler import ParticipationConfig

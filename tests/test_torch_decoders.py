@@ -185,11 +185,13 @@ def test_chip_smoke_kernel_cases_come_from_the_configs():
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
-    """``Model.init``, ``ClientWorker`` and ``SocketBackend`` called without
-    ``device`` ask for the card; where torch sees none, each raises instead
-    of falling back to the CPU. With ``device="cpu"`` each runs here."""
+    """``Model.init``, ``ClientWorker``, ``SocketBackend`` and
+    ``empty_cache_desc`` called without ``device`` ask for the card; where
+    torch sees none, each raises instead of falling back to the CPU. With
+    ``device="cpu"`` each runs here."""
     from repro_torch.core.federated import FederatedConfig
     from repro_torch.core.sampler import ParticipationConfig
+    from repro_torch.models.attention import empty_cache_desc
     from repro_torch.runtime import ClientWorker, SocketBackend
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -200,6 +202,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
         "ClientWorker": lambda **kw: ClientWorker(lambda p, b: None, fed, pcfg,
                                                   make_batches=lambda cid: None, **kw),
         "SocketBackend": lambda **kw: SocketBackend(port=0, **kw),
+        "empty_cache_desc": lambda **kw: empty_cache_desc(model.cfg, 1, 4, torch.float32, **kw),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

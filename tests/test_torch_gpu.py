@@ -12,7 +12,9 @@ non-finite values at the plain version's positions); a one-tile round is
 bitwise the flat round; the async driver launches each fedcore kernel
 exactly as often as it counts flushes, client phases and admissions; the
 staleness governor's flushes run server_apply at the widths it picks; a
-socket run (worker threads on the card) is bitwise the in-process run. The SSD
+socket run (worker threads on the card) is bitwise the in-process run; the
+heterogeneous_federation example's fused top-k rounds launch server_apply
+and topk_mask_ef once a round and nothing else. The SSD
 scan, flash attention and flash decode: y within one bf16 ulp of the plain
 version (f32: 1e-5·max|y|). RMSNorm: bf16 within one bf16 ulp, f32 within
 2e-6·|y|. Flash decode and RMSNorm also give the same bits on two launches,
@@ -419,6 +421,41 @@ def test_socket_run_on_cuda_is_bitwise_the_in_process_run(uplink):
     assert K.server_apply.launches == drv.n_flushes == 3
     if uplink == "int8":
         assert K.int8_quant.launches == executed and K.int8_dequant.launches == drv.n_admissions
+
+
+def test_heterogeneous_federation_example_on_cuda_launches_once_per_round(monkeypatch):
+    """The example's sync ``--fused-server --uplink topk`` run: server_apply
+    and topk_mask_ef once per round, no other kernel, finite params; each
+    topk_mask_ef launch bitwise its plain version on the inputs it was given."""
+    _need_cuda()
+    from repro_torch.examples import heterogeneous_federation
+    from repro_torch.kernels.fedcore import ops
+    from repro_torch.tree import tree_leaves
+
+    given = []
+
+    class Recorded:  # ops.K, with topk_mask_ef's inputs kept
+        def __getattr__(self, name):
+            return getattr(K, name)
+
+        @staticmethod
+        def topk_mask_ef(x, thresh):
+            given.append((x.clone(), thresh.clone()))
+            return K.topk_mask_ef(x, thresh)
+
+    monkeypatch.setattr(ops, "K", Recorded())
+    for f in K.KERNELS.values():
+        f.launches = 0
+    agg = heterogeneous_federation.main(["--fused-server", "--uplink", "topk", "--rounds", "2",
+                                         "--device", "cuda"])
+    torch.cuda.synchronize()
+    assert {n: f.launches for n, f in K.KERNELS.items()} == {
+        n: 2 if n in ("server_apply", "topk_mask_ef") else 0 for n in K.KERNELS}
+    assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(agg.state["params"]))
+    assert len(given) == 2
+    for x, thresh in given:
+        for a, b in zip(K.topk_mask_ef(x, thresh), K.topk_mask_ef_plain(x, thresh)):
+            assert torch.equal(_bits(a), _bits(b))
 
 
 def _bits(t):
