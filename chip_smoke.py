@@ -193,6 +193,33 @@ Phases, one JSON line each:
                 processes started together (each with its own server and
                 workers), each to exit 0 with its PASS lines, round and
                 kill-resume bitwise
+  mesh          the mesh tooling: ``python -m repro_torch.launch.dryrun --arch
+                assigned --shape all --multi-pod both --train-mode both`` (every
+                production plan: exit 0, one report per plan, the measured
+                terms null); reduced mamba2-1.3b's host-mesh step (int8,
+                --fused-server, float32 compute) on the card against the CPU
+                (params to 1e-4 at round 0; from round 100 with a seeded
+                FedMom lane, the update of the params and of the lane to 1e-3
+                of the CPU update's norm); then mamba2-1.3b's federated
+                train_4k step from ``launch/steps.build_train_step`` on the
+                one-card host mesh at published widths and 48 layers (global
+                batch 2, τ = 1: C = 1, grad_accum 2, micro-batch 1 x 4096,
+                remat, FedMom, --fused-server), --uplink float32 and int8,
+                materialized from seed 0 at round 100 (past the warmup, whose
+                lr is 0 at round 0) and run once counted and once timed:
+                round seconds, tokens/s, peak memory and
+                ``verify_micro_batch``, counted FLOPs and bytes, model FLOPs,
+                the roofline terms; exactly one server_apply per run (and one
+                int8_quant and one int8_dequant under int8); under int8 a
+                third run records the codecs' inputs under torch.profiler
+                (the device's busy share, the device time of
+                select_backward, add and the other large ops); each launch
+                held to its plain version at its recorded shape (codecs
+                bitwise, server_apply under FedMom);
+                the host-mesh CLI at mamba2-1.3b's decode_32k and long_500k
+                (exit 0, measured peaks, no kernel); the micro-batch estimate
+  timing        the wall seconds of each phase and their sum (the script
+                must end within 1,200 s)
   kernels       one line {"kernels": [...]} with every kernel's numbers; the
                 fedcore kernels' entries add the async path's launches
                 (``async_launches``), the Byzantine run's
@@ -212,7 +239,10 @@ Phases, one JSON line each:
                 (``examples_case``) and heterogeneous_federation's widths
                 (``examples_hetero_cases``), the three codecs their cases on
                 the inputs heterogeneous_federation gave them
-                (``examples_cases``, bitwise)
+                (``examples_cases``, bitwise); ``server_apply``, ``int8_quant``
+                and ``int8_dequant`` add the mesh phase's launches per run by
+                uplink (``mesh_launches``) and their case at its shape
+                (``mesh_case``)
 
 No model path launches flash_decode or rmsnorm (none does in the JAX package
 either), and no decoder layer launches flash_attention (its window is a 0-d
@@ -225,6 +255,7 @@ non-zero; without a CUDA device the script exits 2 before printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import gc
@@ -355,6 +386,23 @@ EXAMPLE_SYNC_KERNELS = ("server_apply", "topk_mask_ef")
 EXAMPLE_E2E_ARGS = ["--full", "--fused-server"]
 E2E_PROFILE_STEPS = 8  # one client's local steps profiled at pretrain_e2e's (B, S)
 SOCKET_DEMOS = ("round", "kill-resume", "chaos", "corrupt")
+#: the mesh phase: mamba2-1.3b's federated train_4k step on the one-card host
+#: mesh at published widths and all 48 layers, the global batch cut 256 -> 2
+#: (two micro-batches of 1 x 4096; 8 took ~200 s of the phase and brought the
+#: script near its time limit) and τ to the reference's --tau-lowered 1
+MESH_ARCH, MESH_BATCH, MESH_TAU = "mamba2-1.3b", 2, 1
+#: the round the mesh steps start from: past the inner cosine's 100-step
+#: warmup, so the local steps move the params at about lr_max (at round 0
+#: the first step's rate is 0)
+MESH_ROUND = 100
+#: aten ops whose device time the profiled round reports whole (with what
+#: they call): the layer slices' backward and the adds that fold it in
+MESH_PROFILED_OPS = ("aten::select_backward", "aten::add", "aten::add_", "aten::mul",
+                     "aten::bmm", "aten::copy_", "aten::mm")
+MESH_UPLINK_KERNELS = {"float32": {"server_apply": 1},
+                       "int8": {"server_apply": 1, "int8_quant": 1, "int8_dequant": 1}}
+MESH_HOST_SHAPES = "decode_32k,long_500k"
+MESH_CLI_TIMEOUT = 600
 SOCKET_DEMO_TIMEOUT = 600
 #: (kernel, the --uplink that runs it, line of the TPU kernel, why no library call)
 CODEC_KERNELS = (
@@ -440,23 +488,16 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def all_kernels() -> dict:
-    """Every kernel wrapper of the port, by name (each counts its launches)."""
-    from repro_torch.kernels.fedcore import kernel as K
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.flash_decode import kernel as DK
-    from repro_torch.kernels.rmsnorm import kernel as RK
-    from repro_torch.kernels.ssd_scan import kernel as SK
-
-    return {**K.KERNELS, **SK.KERNELS, **FK.KERNELS, **DK.KERNELS, **RK.KERNELS}
-
-
 def zero_launches() -> None:
+    from repro_torch.kernels import all_kernels
+
     for fn in all_kernels().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
+    from repro_torch.kernels import all_kernels
+
     return {name: fn.launches for name, fn in all_kernels().items()}
 
 
@@ -516,8 +557,13 @@ def _server_apply_case(opt: str, with_noise: bool, gen, dev: str = "cuda",
             torch.cuda.synchronize()
         return p, ls, torch.stack([norms[0], norms[1], *norms[2]])
 
+    # each comparison frees its copies before the next run: at mamba2-1.3b's
+    # Np = 1.34 B a (Np,) f32 copy is 5.4 GB
     p_k, l_k, n_k = run(K.server_apply)
     p_k2, l_k2, n_k2 = run(K.server_apply)
+    bitwise = bool(torch.equal(n_k, n_k2) and torch.equal(p_k, p_k2)
+                   and all(torch.equal(a, b) for a, b in zip(l_k, l_k2)))
+    del p_k2, l_k2
     p_p, l_p, n_p = run(K.server_apply_plain)
 
     scale = max(1.0, float(p_p.abs().max()))
@@ -525,8 +571,7 @@ def _server_apply_case(opt: str, with_noise: bool, gen, dev: str = "cuda",
     err_lanes = max([float((a - b).abs().max()) for a, b in zip(l_k, l_p)] or [0.0])
     lane_scale = max([max(1.0, float(b.abs().max())) for b in l_p] or [1.0])
     rel_norms = float(((n_k.double() - n_p.double()).abs() / n_p.double().abs()).max())
-    bitwise = bool(torch.equal(n_k, n_k2) and torch.equal(p_k, p_k2)
-                   and all(torch.equal(a, b) for a, b in zip(l_k, l_k2)))
+    del p_k, l_k, p_p, l_p
     assert err_p <= 1e-6 * scale, (opt, with_noise, "params", err_p)
     assert err_lanes <= 1e-6 * lane_scale, (opt, with_noise, "lanes", err_lanes)
     assert rel_norms <= 1e-5, (opt, with_noise, "norms", rel_norms)
@@ -1146,7 +1191,8 @@ class _KernelInputs:
             def call(*args):
                 key = (*args[0].shape, *(tuple(args[2]) if len(args) > 2 else ()))
                 rec.codec_shapes[name].append(key)
-                rec.codec_args[name].setdefault(key, tuple(clone(a) for a in args))
+                if key not in rec.codec_args[name]:
+                    rec.codec_args[name][key] = tuple(clone(a) for a in args)
                 return getattr(K, name)(*args)
             return staticmethod(call)
 
@@ -2670,6 +2716,341 @@ def phase_examples() -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# The mesh tooling: production plans, the one-card host mesh, the dry-run CLI
+# ---------------------------------------------------------------------------
+
+
+def _dryrun_cli(argv, out: str) -> dict:
+    """``python -m repro_torch.launch.dryrun`` as the CLI runs, writing its
+    reports to ``out``: exit code, stdout and the reports by tag."""
+    import glob
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                           "--out", out], capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=MESH_CLI_TIMEOUT)
+    reports = {}
+    for path in sorted(glob.glob(os.path.join(out, "*.json"))):
+        with open(path) as f:
+            reports[os.path.basename(path)[:-len(".json")]] = json.load(f)
+    return {"rc": proc.returncode, "stdout": proc.stdout, "stderr": proc.stderr,
+            "reports": reports, "seconds": time.perf_counter() - t0}
+
+
+def _update_rel_err(got, want, start) -> float:
+    """‖got − want‖ ÷ ‖want − start‖ over leaf lists, in float64: how far the
+    update ``got − start`` is from ``want − start``. An update that moves
+    nothing, or moves the wrong way, is off by 1 or more."""
+    num = sum(float(((g.double() - w.double()) ** 2).sum()) for g, w in zip(got, want))
+    den = sum(float(((w.double() - s.double()) ** 2).sum()) for w, s in zip(want, start))
+    assert den > 0.0, "the CPU update is zero"
+    return math.sqrt(num / den)
+
+
+def _mesh_check() -> dict:
+    """Reduced mamba2-1.3b's federated host-mesh step (float32 compute,
+    int8 uplink, --fused-server) on the card and on the CPU from the same
+    params and tokens: at round 0 with a zero FedMom lane the new params
+    agree to 1e-4; from round ``MESH_ROUND`` with a seeded lane, where the
+    step moves them by ~1e-3, the update of the params and of the lane
+    agrees to 1e-3 of the CPU update's norm."""
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step, materialize
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def lanes(state):
+        return [x.detach().cpu().clone() for x in
+                tree_leaves(state["params"]) + tree_leaves(state["outer"]["momentum"])]
+
+    cfg = dataclasses.replace(get_config(MESH_ARCH).reduced(), compute_dtype="float32")
+    shape = InputShape("train_4k", 64, 4, "train")
+    outs, upd = {}, {}
+    for dev in ("cpu", "cuda"):
+        step = build_train_step(cfg, shape, make_host_mesh(device=dev), tau_lowered=2,
+                                fused_server=True, uplink="int8")
+        new_state, metrics = step.fn(*materialize(step, dev, seed=0))
+        outs[dev] = (tree_leaves(new_state["params"]), float(metrics["train_loss"]))
+        args = materialize(step, dev, seed=0)
+        gen = torch.Generator().manual_seed(3)
+        args[0]["round"] = MESH_ROUND
+        args[0]["outer"]["momentum"] = tree_map(
+            lambda x: (torch.randn(x.shape, generator=gen) * 3e-4).to(dev), args[0]["params"])
+        start = lanes(args[0])
+        upd[dev] = (start, lanes(step.fn(*args)[0]))
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(outs["cuda"][0], outs["cpu"][0]))
+    n_p = len(outs["cpu"][0])
+    (start, got), (_, want) = upd["cuda"], upd["cpu"]
+    r = {"max_abs_err_params": err, "loss_cuda": outs["cuda"][1], "loss_cpu": outs["cpu"][1],
+         "round": MESH_ROUND,
+         "update_rel_err_params": _update_rel_err(got[:n_p], want[:n_p], start[:n_p]),
+         "update_rel_err_momentum": _update_rel_err(got[n_p:], want[n_p:], start[n_p:]),
+         "update_norm_params": math.sqrt(sum(float(((w.double() - s.double()) ** 2).sum())
+                                             for w, s in zip(want[:n_p], start[:n_p])))}
+    emit("mesh", check=r)
+    assert err <= 1e-4 and abs(r["loss_cuda"] - r["loss_cpu"]) <= 1e-4, r
+    assert r["update_rel_err_params"] <= 1e-3 and r["update_rel_err_momentum"] <= 1e-3, r
+    return r
+
+
+def _mesh_step(uplink: str) -> dict:
+    """mamba2-1.3b's federated step built by ``launch/steps`` on the one-card
+    host mesh (``--fused-server``, ``uplink``), materialized from seed 0, run
+    once counted and once timed (``roofline.analysis.measure``); the fedcore
+    launches held to exactly one per run of each kernel the path runs, and
+    the shape of every ``server_apply`` launch recorded. Under int8 the
+    codecs' inputs are copied for holding against the plain versions in a
+    third run, so that the counted and timed runs hold no copies; that run
+    is under ``torch.profiler``: the device's busy share and the device time
+    of ``MESH_PROFILED_OPS``."""
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.autobatch import verify_micro_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (_target_tokens, arg_bytes_per_device,
+                                          build_train_step, materialize)
+    from repro_torch.roofline.analysis import analyze_compiled, measure
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(MESH_ARCH)
+    shape = InputShape("train_4k", 4096, MESH_BATCH, "train")
+    mesh = make_host_mesh()
+    step = build_train_step(cfg, shape, mesh, tau_lowered=MESH_TAU, fused_server=True,
+                            uplink=uplink)
+    meta = step.meta
+    assert (meta["clients"], meta["grad_accum"], meta["fused_server"]) == (
+        1, MESH_BATCH, True), meta
+    assert _target_tokens(cfg) == 4096 and cfg.n_layers == MAMBA2_LAYERS
+    assert tuple(step.args[1]["tokens"].shape) == (MESH_TAU, 1, MESH_BATCH, 1, 4096)
+    plan_bytes = arg_bytes_per_device(step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    args = materialize(step, "cuda", seed=0)
+    # past the warmup: at round 0 the one local step (τ = 1) takes the
+    # cosine warmup's learning rate at step 0, which is 0, and moves nothing
+    args[0]["round"] = MESH_ROUND
+    torch.cuda.synchronize()
+    materialize_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(args[0]["params"]))
+    rec = _KernelInputs()
+    zero_launches()
+    # float32 launches no codec, so there the recorder copies nothing
+    with rec if uplink == "float32" else contextlib.nullcontext():
+        m = measure(step.fn, args, "cuda", keep_output=True)
+    launches = read_launches()
+    new_state, metrics = m.output
+    finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(new_state["params"]))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    m.output = None
+    del new_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = None
+    if uplink != "float32":
+        with rec:
+            prof = profile_ops(lambda: step.fn(*args), MESH_PROFILED_OPS)
+    del args
+    report = analyze_compiled(f"{MESH_ARCH}:train_4k:host:{uplink}", m, mesh.size,
+                              model_flops=step.model_flops)
+    tokens = meta["tokens_per_call"]
+    r = {"uplink": uplink, "global_batch": MESH_BATCH, "tau": MESH_TAU,
+         "clients": meta["clients"], "grad_accum": meta["grad_accum"],
+         "micro_batch": [1, 4096], "n_layers": cfg.n_layers, "n_params": n_params,
+         "param_count": cfg.param_count(), "plan_arg_bytes": plan_bytes,
+         "materialize_s": materialize_s, "round_s": m.seconds,
+         "tokens_per_s": tokens / m.seconds, "peak_mem_GB": m.peak_memory / 1e9,
+         "card_mem_GB": mesh.hbm_bytes / 1e9, "verify_micro_batch": verify_micro_batch(m),
+         "counted_flops": m.flops, "counted_bytes": m.bytes, "aten_ops": m.ops,
+         "model_flops": step.model_flops, "useful_flops_ratio": report.useful_flops_ratio,
+         "t_compute_s": report.t_compute, "t_memory_s": report.t_memory,
+         "t_collective_s": report.t_collective, "bottleneck": report.bottleneck,
+         # a model, not a measurement: op-boundary bytes over the data sheet's HBM rate
+         "t_roofline_over_wall_model": max(report.t_compute, report.t_memory) / m.seconds,
+         "kernels_not_counted": m.kernels_not_counted, "launches": launches,
+         "server_apply_widths": list(rec.server_apply), "top_ops_by_bytes": m.by_op,
+         "train_loss": metrics["train_loss"], "pseudo_grad_norm": metrics["pseudo_grad_norm"],
+         "finite_params": finite, "round": MESH_ROUND}
+    if prof is not None:
+        r["profile"] = dict(prof, busy_share=prof["device_ms"] / prof["profiled_wall_ms"],
+                            busy_share_of_timed_wall=prof["device_ms"] / (m.seconds * 1e3))
+    emit("mesh", step=r)
+    want = MESH_UPLINK_KERNELS[uplink]
+    assert m.kernels_not_counted == want, (m.kernels_not_counted, want)
+    assert launches == {n: 2 * want.get(n, 0) for n in launches}, launches  # two runs
+    assert finite and math.isfinite(r["train_loss"]) and r["pseudo_grad_norm"] > 0, r
+    runs = 2 if uplink == "float32" else 1  # the runs the recorder was installed for
+    assert rec.server_apply == [rec.server_apply[0]] * runs and all(
+        len(v) == runs * want.get(n, 0) for n, v in rec.codec_shapes.items()), (
+        rec.server_apply, rec.codec_shapes)
+    assert prof is None or prof["device_ms"] > 0, prof
+    assert r["verify_micro_batch"], r
+    r["rec"] = rec
+    return r
+
+
+def profile_ops(fn, ops) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device time of all
+    its kernels (and copies and fills) and the call's wall under the
+    profiler; for each aten op in ``ops`` its calls and the device time of
+    the kernels it launched itself or through the ops it called; and the
+    ten ops of most device time launched by themselves (self). Read from the
+    raw profiler events: a kernel links to the op that launched it by
+    correlation id, and an op's callers are the ops that enclose it on its
+    thread. (``key_averages`` gives the same sums but builds an event object
+    per event, minutes at a full-width round's ~2 M events.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    return dict(read_profile(prof, ops), profiled_wall_ms=wall_ms,
+                processing_s=time.perf_counter() - t0)
+
+
+def read_profile(prof, ops) -> dict:
+    """``profile_ops``'s sums from a finished ``torch.profiler`` profile."""
+    from torch.autograd import DeviceType
+
+    device_ns, by_corr, cpu_ops = 0, {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            device_ns += e.duration_ns()
+            c = e.linked_correlation_id()
+            if c > 0:  # 0: launched by no op the profiler saw
+                by_corr[c] = by_corr.get(c, 0) + e.duration_ns()
+        elif (e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0
+              and not e.is_async() and e.name() != "[memory]"):
+            cpu_ops.append((e.start_thread_id(), e.start_ns(), -e.end_ns(), e.name(),
+                            e.correlation_id()))
+    cpu_ops.sort()
+    self_ns, incl_ns, calls = {}, {n: 0 for n in ops}, {n: 0 for n in ops}
+    stack, thread = [], None  # (end_ns, name) of the ops enclosing this one
+    for tid, start, neg_end, name, corr in cpu_ops:
+        if tid != thread:
+            stack, thread = [], tid
+        while stack and stack[-1][0] <= start:
+            stack.pop()
+        stack.append((-neg_end, name))
+        if name in calls:
+            calls[name] += 1
+        d = by_corr.get(corr, 0)
+        if d:
+            self_ns[name] = self_ns.get(name, 0) + d
+            for n in {n for _, n in stack if n in incl_ns}:
+                incl_ns[n] += d
+    top = sorted(self_ns.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_ms": device_ns / 1e6,
+            "ops": {n: {"device_ms": incl_ns[n] / 1e6, "calls": calls[n]} for n in ops},
+            "top_self_device_ms": {n: v / 1e6 for n, v in top}, "cpu_ops": len(cpu_ops)}
+
+
+def phase_mesh() -> dict:
+    """The mesh tooling on the card: every production plan through the
+    dry-run CLI; mamba2-1.3b's federated step on the one-card host mesh
+    (float32 and int8 uplinks), its fedcore launches held to their plain
+    versions at the shapes the step gave them; the host-mesh CLI at
+    mamba2-1.3b's decode_32k and long_500k; the micro-batch estimate."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.autobatch import estimate_micro_batch
+
+    r = {}
+    with tempfile.TemporaryDirectory() as out:
+        cli = _dryrun_cli(["--arch", "assigned", "--shape", "all", "--multi-pod", "both",
+                           "--train-mode", "both"], out)
+    n_plans = cli["stdout"].count("not compiled:")
+    reps = cli["reports"]
+    r["production"] = {
+        "rc": cli["rc"], "plans": n_plans, "reports": len(reps), "seconds": cli["seconds"],
+        "arg_bytes_per_device": {t: reps[t]["arg_bytes_per_device"] for t in (
+            "mamba2-1.3b__train_4k__pod1__federated", "qwen3-1.7b__decode_32k__pod1",
+            "llama4-scout-17b-a16e__train_4k__pod2__federated",
+            "deepseek-coder-33b__train_4k__pod1__federated") if t in reps},
+        "clients": {t: reps[t]["meta"].get("clients") for t in reps if "federated" in t
+                    and "pod1" in t}}
+    emit("mesh", production=r["production"])
+    assert cli["rc"] == 0, cli["stdout"][-3000:] + cli["stderr"][-3000:]
+    assert n_plans == len(reps) > 0 and all(v["flops_per_device"] is None
+                                            for v in reps.values()), (n_plans, len(reps))
+
+    r["check"] = _mesh_check()
+    steps = {}
+    for uplink in MESH_UPLINK_KERNELS:
+        steps[uplink] = _mesh_step(uplink)
+        gc.collect()
+        torch.cuda.empty_cache()
+    r["steps"] = {u: {k: v for k, v in st.items() if k != "rec"} for u, st in steps.items()}
+
+    # each launch of the two runs held to its plain version at its recorded shape
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    held = {"int8_quant": [], "int8_dequant": [], "server_apply": []}
+    widths = set()
+    for uplink, st in steps.items():
+        rec = st.pop("rec")
+        widths.update(rec.server_apply)
+        rec.server_apply.clear()  # server_apply is held below, under FedMom
+        for name, cases in rec.held("mesh", gen).items():
+            if name in ("int8_quant", "int8_dequant"):
+                held[name] += [dict(c, uplink=uplink) for c in cases]
+    for C, Np in sorted(widths):  # both uplinks give server_apply the same (C, Np)
+        case = _server_apply_case("fedmom", False, gen, C=C, Np=Np)
+        held["server_apply"].append({k: case[k] for k in (
+            "opt", "C", "Np", "max_abs_err_params", "max_abs_err_lanes", "max_rel_err_norms",
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by")})
+        emit("mesh", server_apply_held=held["server_apply"][-1])
+        del case
+        torch.cuda.empty_cache()
+    assert len(held["int8_quant"]) == len(held["int8_dequant"]) == 1, held
+    assert len(held["server_apply"]) == 1, held
+    r["held"] = held
+
+    with tempfile.TemporaryDirectory() as out:
+        cli = _dryrun_cli(["--mesh", "host", "--arch", MESH_ARCH, "--shape", MESH_HOST_SHAPES],
+                          out)
+    r["host_cli"] = {"rc": cli["rc"], "seconds": cli["seconds"], "reports": {
+        t: {k: v.get(k) for k in ("peak_memory_per_device", "arg_bytes_per_device",
+                                  "flops_per_device", "bytes_per_device", "t_compute_s",
+                                  "t_memory_s", "bottleneck", "run_s")}
+        | {"seconds": v["measured"]["seconds"],
+           "kernels_not_counted": v["measured"]["kernels_not_counted"]}
+        for t, v in cli["reports"].items()}}
+    emit("mesh", host_cli=r["host_cli"])
+    assert cli["rc"] == 0, cli["stdout"][-3000:] + cli["stderr"][-3000:]
+    assert len(cli["reports"]) == 2 and all(
+        v["peak_memory_per_device"] and not v["measured"]["kernels_not_counted"]
+        for v in cli["reports"].values()), cli["stdout"][-3000:]
+
+    cfg = get_config(MESH_ARCH)
+    r["estimate_micro_batch"] = estimate_micro_batch(cfg, 4096, model_parallel=1)
+    emit("mesh", estimate_micro_batch=r["estimate_micro_batch"],
+         card_mem_bytes=torch.cuda.get_device_properties(0).total_memory)
+    return r
+
+
+#: wall seconds of each phase of ``main`` (and its argument), for the timing line
+PHASE_SECONDS = {}
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its wall seconds kept in ``PHASE_SECONDS``."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_SECONDS[":".join([phase.__name__[len("phase_"):], *map(str, args)])] = \
+        time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2687,29 +3068,33 @@ def main() -> int:
     smi = gpu_name_and_power()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    phase_build()
-    sa = phase_server_apply()
-    codecs = phase_codecs()
-    ssd = phase_ssd_scan()
-    flash = phase_flash_attention()
-    decode = phase_flash_decode()
-    rms = phase_rmsnorm()
-    phase_check()
-    phase_serve_check()
-    launches = {uplink: phase_train(uplink) for uplink in TRAIN_KERNELS}
-    async_launches = {uplink: phase_train_async(uplink) for uplink in ASYNC_KERNEL_COUNTERS}
-    phase_train_tiled()
-    byz_launches = {uplink: phase_train_byzantine(uplink) for uplink in ("float32", "int8")}
-    phase_centralized()
-    governed = {uplink: phase_train_governed(uplink) for uplink in ("float32", "int8")}
-    cohort = phase_train_cohort()
-    sockets = phase_train_sockets()
-    mamba2 = phase_serve_mamba2()
-    phase_serve_photon()
-    whisper = phase_serve_whisper()
-    families = phase_serve_families()
-    moe = phase_train_moe()
-    examples = phase_examples()
+    timed(phase_build)
+    sa = timed(phase_server_apply)
+    codecs = timed(phase_codecs)
+    ssd = timed(phase_ssd_scan)
+    flash = timed(phase_flash_attention)
+    decode = timed(phase_flash_decode)
+    rms = timed(phase_rmsnorm)
+    timed(phase_check)
+    timed(phase_serve_check)
+    launches = {uplink: timed(phase_train, uplink) for uplink in TRAIN_KERNELS}
+    async_launches = {uplink: timed(phase_train_async, uplink)
+                      for uplink in ASYNC_KERNEL_COUNTERS}
+    timed(phase_train_tiled)
+    byz_launches = {uplink: timed(phase_train_byzantine, uplink)
+                    for uplink in ("float32", "int8")}
+    timed(phase_centralized)
+    governed = {uplink: timed(phase_train_governed, uplink) for uplink in ("float32", "int8")}
+    cohort = timed(phase_train_cohort)
+    sockets = timed(phase_train_sockets)
+    mamba2 = timed(phase_serve_mamba2)
+    timed(phase_serve_photon)
+    whisper = timed(phase_serve_whisper)
+    families = timed(phase_serve_families)
+    moe = timed(phase_train_moe)
+    examples = timed(phase_examples)
+    mesh = timed(phase_mesh)
+    emit("timing", seconds=PHASE_SECONDS, total=sum(PHASE_SECONDS.values()))
 
     main_case = sa[("fedavg", False)]  # the main path: FedAvg, no DP noise, C = 4
 
@@ -2758,6 +3143,11 @@ def main() -> int:
         "examples_case": examples["pretrain_e2e"]["held"][examples["pretrain_e2e"]["clients"]],
         # heterogeneous_federation's sync and async runs: each (C, Np) held
         "examples_hetero_cases": examples["heterogeneous_held"]["server_apply"],
+        # mamba2-1.3b's federated step on the one-card host mesh (phase mesh):
+        # launches per run by uplink, and FedMom at C = 1 over its flat N
+        "mesh_launches": {u: st["kernels_not_counted"].get("server_apply", 0)
+                          for u, st in mesh["steps"].items()},
+        "mesh_case": mesh["held"]["server_apply"][0],
     }]
     for name, uplink, line, note in CODEC_KERNELS:
         r = codecs[COHORT][name]
@@ -2775,6 +3165,10 @@ def main() -> int:
             kernels[-1]["examples_launches"] = examples_launches(name)
             # heterogeneous_federation's launches, on the inputs they were given
             kernels[-1]["examples_cases"] = examples["heterogeneous_held"][name]
+        if name in ("int8_quant", "int8_dequant"):  # the mesh phase's int8 step
+            kernels[-1]["mesh_launches"] = {
+                u: st["kernels_not_counted"].get(name, 0) for u, st in mesh["steps"].items()}
+            kernels[-1]["mesh_case"] = mesh["held"][name][0]
         if uplink == "int8":
             kernels[-1]["governed_launches"] = governed["int8"]["launches"][name]
             kernels[-1]["socket_launches"] = sockets["int8"]["launches"][name]

@@ -122,6 +122,8 @@ class CheckpointManager:
         return d
 
     def save_client(self, rnd: int, client_id: int, data_state: Dict) -> None:
+        """One client's data cursor. Call it before the round's
+        :meth:`save_server`: the manifest commits the round, cursors included."""
         d = self._round_dir(rnd)
         os.makedirs(d, exist_ok=True)
         _atomic_write_json(os.path.join(d, f"client_{client_id:04d}.json"), data_state)

@@ -986,6 +986,18 @@ class AsyncBufferAggregator(Aggregator):
         return self._flush_row(self.flush())
 
     # --- (c) checkpoint ---------------------------------------------------
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """Server state and the per-client error-feedback store as one tree
+        with a fixed structure (the legacy dense schema, kept for buffer-only
+        round trips): the residual lane is the dense ``(P, ...)`` expansion
+        of the sparse store; :meth:`checkpoint` writes the sparse lane. A host
+        copy, as :meth:`checkpoint`'s tree: the next admission writes the
+        buffer lanes in place."""
+        tree = _host_tree(self.state)
+        if self.residuals is not None:
+            tree["uplink_residuals"] = _host_tree(self.residuals.to_dense(self.pcfg.population))
+        return tree
+
     def checkpoint(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """``(state_tree, manifest)``. The tree is a host copy of every lane —
         the next admission writes the buffer, its weights and the residual

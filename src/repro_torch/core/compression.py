@@ -188,7 +188,9 @@ def int8_payload_leaves(payload) -> Tuple[List[dict], Any]:
     return entries, tree_flatten(_int8_entries_into(payload, entries))[1]
 
 
-def int8_decompress(ctree):
+def int8_decompress(ctree, like=None):
+    """The f32 tree of an int8 payload tree (``like`` is unused, as in the
+    reference)."""
     entries, treedef = int8_payload_leaves(ctree)
     return tree_unflatten(treedef, [c["q"].float() * c["scale"] for c in entries])
 

@@ -61,6 +61,7 @@ class FederatedConfig:
     outer: OuterOptConfig = field(default_factory=OuterOptConfig)
     keep_inner_state: bool = False  # paper Fig 10 'FedAvg-KeepOpt'
     grad_accum: int = 1  # micro-batches per local step
+    pre_split_micro: bool = False  # batches carry (τ, C, grad_accum, B_micro, ...)
     fedprox_mu: float = 0.0  # FedProx proximal term strength
     dp_clip: float = 0.0  # per-client pseudo-gradient clip (0 = off)
     dp_noise: float = 0.0  # Gaussian noise std on the aggregate (0 = off)
@@ -132,9 +133,15 @@ def _host_f32(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
-def _accum_value_and_grad(loss_fn, treedef, leaves, batch, n_micro: int):
-    """Loss, metrics and gradients, averaged over ``n_micro`` micro-batches."""
-    if n_micro > 1:
+def _accum_value_and_grad(loss_fn, treedef, leaves, batch, n_micro: int,
+                          pre_split: bool = False):
+    """Loss, metrics and gradients, averaged over ``n_micro`` micro-batches.
+    With ``pre_split`` the batch leaves already carry the leading
+    ``(n_micro, ...)`` dim (the mesh step builders' layout) and micro-batch
+    ``i`` is row ``i``; otherwise the batch dim is reshaped into them."""
+    if pre_split:
+        micro = [{k: v[i] for k, v in batch.items()} for i in range(max(1, n_micro))]
+    elif n_micro > 1:
         micro = [
             {k: v.reshape((n_micro, v.shape[0] // n_micro) + tuple(v.shape[1:]))[i]
              for k, v in batch.items()}
@@ -236,7 +243,7 @@ def run_clients(
         for t in range(steps):
             batch_t = {k: v[t, c] for k, v in batches.items()}
             loss, metrics, grads = _accum_value_and_grad(
-                loss_fn, treedef, params, batch_t, fed.grad_accum
+                loss_fn, treedef, params, batch_t, fed.grad_accum, pre_split=fed.pre_split_micro
             )
             if fed.fedprox_mu > 0.0:
                 grads = [g + fed.fedprox_mu * (p - gp)
@@ -842,13 +849,15 @@ def centralized_step(
     state: Dict[str, Any],
     batch: Dict[str, torch.Tensor],  # leaves (B, ...) — the whole global batch
     grad_accum: int = 1,
+    pre_split: bool = False,  # leaves (grad_accum, B_micro, ...)
 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """One synchronous data-parallel step on a single node: the gradient of
     the global batch (averaged over ``grad_accum`` micro-batches), then the
     inner optimizer. Returns ``(new_state, metrics)``; ``state`` is left as
     it was."""
     leaves, treedef = tree_flatten(state["params"])
-    loss, metrics, grads = _accum_value_and_grad(loss_fn, treedef, leaves, batch, grad_accum)
+    loss, metrics, grads = _accum_value_and_grad(loss_fn, treedef, leaves, batch, grad_accum,
+                                                 pre_split=pre_split)
     inner_state = {k: v if k == "count" else tree_leaves(v) for k, v in state["inner"].items()}
     new_leaves, new_inner, opt_metrics = inner_update(inner, leaves, grads, inner_state,
                                                       int(state["step"]))

@@ -704,9 +704,11 @@ def _run_sync_rounds(args, model, agg, streams, val_stream, ckpt, logger, histor
                 # names this round, valid exactly when this checkpoint is complete
                 rs.mark_good(rnd)
             tree, agg_manifest = agg.checkpoint()
-            ckpt.save_server(rnd, tree, extra={"args": vars(args), "aggregator": agg_manifest})
+            # the cursors before the manifest, which commits the round: a kill
+            # in between leaves a partial round that --resume skips
             for i in range(args.population):
                 ckpt.save_client(rnd, i, streams[i].state_dict())
+            ckpt.save_server(rnd, tree, extra={"args": vars(args), "aggregator": agg_manifest})
 
 
 # args whose value changes the dispatch timeline, the data every client draws
@@ -951,16 +953,19 @@ def _run_async(args, cfg, model, fed, pcfg, streams, val_stream, params, codec, 
             if rs is not None and (not tripped or rolled_back):
                 rs.mark_good(u)
             tree, agg_manifest = driver.checkpoint()
-            ckpt.save_server(u, tree, extra={
-                "args": vars(args), "aggregator": agg_manifest,
-                "train": {"deltas_admitted": deltas_admitted[0]}, "sim_time": row["sim_time"],
-            })
             # the cursors' source of truth: the streams in process, the
-            # backend's committed cursors under sockets
+            # backend's committed cursors under sockets. They are written
+            # before the manifest, which commits the round: a server killed in
+            # between leaves a partial round that --resume skips, not a
+            # complete one whose clients would restart their streams
             cursors = (backend.snapshot_stream_states() if backend is not None
                        else [streams[ci].state_dict() for ci in range(args.population)])
             for ci, cur in enumerate(cursors):
                 ckpt.save_client(u, ci, cur)
+            ckpt.save_server(u, tree, extra={
+                "args": vars(args), "aggregator": agg_manifest,
+                "train": {"deltas_admitted": deltas_admitted[0]}, "sim_time": row["sim_time"],
+            })
 
     try:
         if args.rounds > start_update:

@@ -28,14 +28,15 @@ def attn_desc(cfg, cross: bool = False) -> dict:
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     scale = 0.02
     p = {
-        "wq": ParamDesc((d, hq, hd), "normal", scale),
-        "wk": ParamDesc((d, hkv, hd), "normal", scale),
-        "wv": ParamDesc((d, hkv, hd), "normal", scale),
-        "wo": ParamDesc((hq, hd, d), "normal", scale / max(1, 2 * cfg.n_layers) ** 0.5),
+        "wq": ParamDesc((d, hq, hd), (None, "heads", "head_dim"), "normal", scale),
+        "wk": ParamDesc((d, hkv, hd), (None, "kv_heads", "head_dim"), "normal", scale),
+        "wv": ParamDesc((d, hkv, hd), (None, "kv_heads", "head_dim"), "normal", scale),
+        "wo": ParamDesc((hq, hd, d), ("heads", "head_dim", None), "normal",
+                        scale / max(1, 2 * cfg.n_layers) ** 0.5),
     }
     if cfg.qk_norm and not cross:
-        p["q_norm"] = ParamDesc((hd,), "ones")
-        p["k_norm"] = ParamDesc((hd,), "ones")
+        p["q_norm"] = ParamDesc((hd,), (None,), "ones")
+        p["k_norm"] = ParamDesc((hd,), (None,), "ones")
     return p
 
 

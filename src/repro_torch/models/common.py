@@ -1,10 +1,12 @@
 """Shared building blocks: parameter descriptions, norms, activations and
 positional encodings — the counterpart of ``repro.models.common``.
 
-Every parameter is declared once as a ``ParamDesc(shape, init)``; ``init_params``
-materializes a tree of them with a ``torch.Generator`` per leaf (per chunk of a
-large leaf), seeded from the run seed and the leaf's key path (the same path-keyed scheme the JAX
-package uses with ``fold_in``; the numbers differ because the generators do).
+Every parameter is declared once as a ``ParamDesc(shape, axes, init)``:
+``init_params`` materializes a tree of them with a ``torch.Generator`` per leaf
+(per chunk of a large leaf), seeded from the run seed and the leaf's key path
+(the same path-keyed scheme the JAX package uses with ``fold_in``; the numbers
+differ because the generators do), and ``param_axes`` extracts the logical
+axis of every dim, which ``sharding.specs`` resolves against a mesh.
 """
 from __future__ import annotations
 
@@ -20,14 +22,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.tree import flatten_with_paths, tree_flatten, tree_map, tree_unflatten
 
 
 @dataclass(frozen=True)
 class ParamDesc:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis names per dim (None = replicated)
     init: str = "normal"  # 'normal' | 'zeros' | 'ones' | 'embed' | 'ssm_a' | 'ssm_dt'
     scale: float = 0.02
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def is_desc(x) -> bool:
@@ -59,15 +66,16 @@ def _materialize(desc: ParamDesc, gen: torch.Generator, numel: int) -> torch.Ten
     raise ValueError(f"unknown init {desc.init!r}")
 
 
-def init_params(seed: int, desc_tree, dtype=torch.float32, device="cpu"):
+def init_params(seed: int, desc_tree, dtype=torch.float32, device="cuda"):
     """Materialize a ParamDesc tree: leaf ``path`` draws from a CPU generator
     seeded with ``(seed, crc32(path))`` — a leaf of more than ``INIT_CHUNK``
     elements draws chunk ``i`` from ``(seed, crc32(f"{path}#{i}"))`` — so
     values do not depend on the device or on the other leaves. The chunks are
     drawn on a pool of host threads, each into its own buffer, and copied
-    into the leaves on ``device``. On the ``meta`` device only shapes are
+    into the leaves on ``device`` (the card unless the caller asks for the
+    CPU; cuda without a card raises). On the ``meta`` device only shapes are
     made."""
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == "meta":
         return tree_map(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"), desc_tree)
     items = flatten_with_paths(desc_tree)
@@ -109,12 +117,22 @@ def init_params(seed: int, desc_tree, dtype=torch.float32, device="cpu"):
     return tree_unflatten(tree_flatten(desc_tree)[1], out)
 
 
-def stack_descs(desc_tree, n: int):
+def param_axes(desc_tree):
+    """The logical-axes tree (same structure as params; tuple leaves)."""
+    return tree_map(lambda d: d.axes, desc_tree)
+
+
+def param_shapes(desc_tree):
+    return tree_map(lambda d: d.shape, desc_tree)
+
+
+def stack_descs(desc_tree, n: int, stack_axis_name: Optional[str] = None):
     """Prepend a stacking dim of size n to every desc (layer stacks)."""
     leaves, treedef = tree_flatten(desc_tree)
-    return tree_unflatten(
-        treedef, [dataclasses.replace(d, shape=(n,) + d.shape) for d in leaves]
-    )
+    return tree_unflatten(treedef, [
+        dataclasses.replace(d, shape=(n,) + d.shape, axes=(stack_axis_name,) + d.axes)
+        for d in leaves
+    ])
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +165,8 @@ def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
 def norm_desc(cfg, d_model: Optional[int] = None) -> dict:
     d = d_model or cfg.d_model
     if cfg.norm == "rmsnorm":
-        return {"scale": ParamDesc((d,), "ones")}
-    return {"scale": ParamDesc((d,), "ones"), "bias": ParamDesc((d,), "zeros")}
+        return {"scale": ParamDesc((d,), (None,), "ones")}
+    return {"scale": ParamDesc((d,), (None,), "ones"), "bias": ParamDesc((d,), (None,), "zeros")}
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
     model = Model(cfg)
     params = model.init(seed, device="cuda")
-    loss, metrics = model.loss(params, batch)
+    loss, metrics = model.loss(params, batch, remat=True)
     logits, cache = model.prefill(params, batch, use_pallas=True)
     logits, cache = model.decode_step(params, cache, tokens, cache_index)
 
@@ -22,7 +22,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
-from repro_torch.models.common import init_params
+from repro_torch.models.common import init_params, param_axes, param_shapes
 
 
 def _ce_sums(logits: torch.Tensor, labels: torch.Tensor):
@@ -93,18 +93,35 @@ class Model:
         self.cfg = cfg
         self._desc = transformer.model_desc(cfg)
 
+    # -- parameters -----------------------------------------------------
+    def desc(self):
+        return self._desc
+
     def init(self, seed: int, device="cuda", dtype=None):
         """The weights on ``device`` (the card unless the caller asks for the
         CPU, or ``meta`` for shapes only); cuda without a card raises."""
         dtype = dtype or getattr(torch, self.cfg.param_dtype)
         return init_params(seed, self._desc, dtype, resolve_device(device))
 
-    def loss(self, params, batch: Dict[str, torch.Tensor]
+    def axes(self):
+        """The logical axis of every dim of every leaf (``sharding.specs``)."""
+        return param_axes(self._desc)
+
+    def shapes(self):
+        return param_shapes(self._desc)
+
+    def abstract_params(self, dtype=None):
+        """The params tree as ``meta`` tensors: shapes and dtypes, no memory."""
+        return self.init(0, device="meta", dtype=dtype)
+
+    def loss(self, params, batch: Dict[str, torch.Tensor], *, remat: bool = False
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Next-token LM loss. batch['tokens'] (B,S); optional batch['loss_mask']."""
+        """Next-token LM loss. batch['tokens'] (B,S); optional batch['loss_mask'].
+        ``remat`` recomputes each layer in the backward pass."""
         tokens = batch["tokens"].long()
         h, aux, _ = transformer.forward(self.cfg, params, tokens,
-                                        audio_embed=batch.get("audio_embed"), logits_mode="hidden")
+                                        audio_embed=batch.get("audio_embed"), remat=remat,
+                                        logits_mode="hidden")
         labels = torch.cat(
             [tokens[:, 1:], torch.full((tokens.shape[0], 1), -1, dtype=tokens.dtype,
                                        device=tokens.device)], dim=1
@@ -119,15 +136,17 @@ class Model:
         return loss, metrics
 
     def forward(self, params, batch: Dict[str, torch.Tensor], *, mode: str = "train",
-                cache=None, cache_index=None, use_pallas: bool = False):
+                cache=None, cache_index=None, remat: bool = False, use_pallas: bool = False):
         """``(logits, aux, new_cache)`` of ``transformer.forward``."""
         return transformer.forward(
             self.cfg, params, batch["tokens"], audio_embed=batch.get("audio_embed"), mode=mode,
-            cache=cache, cache_index=cache_index, use_pallas=use_pallas,
+            cache=cache, cache_index=cache_index, remat=remat, use_pallas=use_pallas,
         )
 
     # -- serving ----------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"):
+        """Zero caches on ``device`` (the card unless the caller asks for the
+        CPU, or ``meta``); cuda without a card raises."""
         return transformer.init_cache(self.cfg, batch, max_len, dtype, device)
 
     def prefill(self, params, batch, *, use_pallas: bool = False):

@@ -26,13 +26,13 @@ def dense_ffn_desc(cfg, d_ff: int, n_copies: int = 1) -> dict:
     out_scale = 0.02 / max(1, 2 * cfg.n_layers) ** 0.5
     if cfg.activation == "silu":  # SwiGLU
         return {
-            "w_in": ParamDesc((d, dff), "normal"),
-            "w_gate": ParamDesc((d, dff), "normal"),
-            "w_out": ParamDesc((dff, d), "normal", out_scale),
+            "w_in": ParamDesc((d, dff), (None, "ffn"), "normal"),
+            "w_gate": ParamDesc((d, dff), (None, "ffn"), "normal"),
+            "w_out": ParamDesc((dff, d), ("ffn", None), "normal", out_scale),
         }
     return {
-        "w_in": ParamDesc((d, dff), "normal"),
-        "w_out": ParamDesc((dff, d), "normal", out_scale),
+        "w_in": ParamDesc((d, dff), (None, "ffn"), "normal"),
+        "w_out": ParamDesc((dff, d), ("ffn", None), "normal", out_scale),
     }
 
 
@@ -52,10 +52,11 @@ def moe_ffn_desc(cfg) -> dict:
     e = cfg.n_experts
     dff = cfg.moe_d_ff or cfg.d_ff
     p = {
-        "router": ParamDesc((d, e), "normal"),
-        "w_in": ParamDesc((e, d, dff), "normal"),
-        "w_gate": ParamDesc((e, d, dff), "normal"),
-        "w_out": ParamDesc((e, dff, d), "normal", 0.02 / max(1, 2 * cfg.n_layers) ** 0.5),
+        "router": ParamDesc((d, e), (None, None), "normal"),
+        "w_in": ParamDesc((e, d, dff), ("experts", None, None), "normal"),
+        "w_gate": ParamDesc((e, d, dff), ("experts", None, None), "normal"),
+        "w_out": ParamDesc((e, dff, d), ("experts", None, None), "normal",
+                           0.02 / max(1, 2 * cfg.n_layers) ** 0.5),
     }
     if cfg.n_shared_experts:
         p["shared"] = dense_ffn_desc(cfg, dff, cfg.n_shared_experts)

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.models.common import ParamDesc, rmsnorm
 
 
@@ -23,14 +24,15 @@ def ssm_desc(cfg) -> dict:
     g, ds, nh = cfg.ssm_n_groups, cfg.ssm_state, cfg.ssm_n_heads
     conv_dim = di + 2 * g * ds
     return {
-        "in_proj": ParamDesc((d, 2 * di + 2 * g * ds + nh), "normal"),
-        "conv_w": ParamDesc((cfg.ssm_conv_width, conv_dim), "normal", 0.2),
-        "conv_b": ParamDesc((conv_dim,), "zeros"),
-        "A_log": ParamDesc((nh,), "ssm_a"),
-        "dt_bias": ParamDesc((nh,), "ssm_dt"),
-        "D_skip": ParamDesc((nh,), "ones"),
-        "norm_scale": ParamDesc((di,), "ones"),
-        "out_proj": ParamDesc((di, d), "normal", 0.02 / max(1, 2 * cfg.n_layers) ** 0.5),
+        "in_proj": ParamDesc((d, 2 * di + 2 * g * ds + nh), (None, "ffn"), "normal"),
+        "conv_w": ParamDesc((cfg.ssm_conv_width, conv_dim), (None, "ffn"), "normal", 0.2),
+        "conv_b": ParamDesc((conv_dim,), ("ffn",), "zeros"),
+        "A_log": ParamDesc((nh,), ("ssm_heads",), "ssm_a"),
+        "dt_bias": ParamDesc((nh,), ("ssm_heads",), "ssm_dt"),
+        "D_skip": ParamDesc((nh,), ("ssm_heads",), "ones"),
+        "norm_scale": ParamDesc((di,), ("ffn",), "ones"),
+        "out_proj": ParamDesc((di, d), ("ffn", None), "normal",
+                              0.02 / max(1, 2 * cfg.n_layers) ** 0.5),
     }
 
 
@@ -71,10 +73,14 @@ def ssd_chunked(
     dA_total = dA_cum[:, :, -1]  # (B,nc,nh)
 
     # ---- intra-chunk (quadratic within chunk, causal, decay-weighted) ----
-    # L[i,j] = exp(dA_cum[i] - dA_cum[j]) for j <= i  (decay from j+1..i)
+    # L[i,j] = exp(dA_cum[i] - dA_cum[j]) for j <= i  (decay from j+1..i).
+    # The mask goes in before the exponential: above the diagonal the decay
+    # is positive and can overflow to inf, and an inf there turns the
+    # gradient of a where() taken after exp into 0·inf = NaN (the reference
+    # takes it after; the forward values are the same either way)
     decay = dA_cum[:, :, :, None, :] - dA_cum[:, :, None, :, :]  # (B,nc,i,j,nh)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    L = torch.where(causal[None, None, :, :, None], torch.exp(decay), 0.0)
+    L = torch.exp(torch.where(causal[None, None, :, :, None], decay, -torch.inf))
     scores = torch.einsum("bclhn,bcshn->bclsh", Cc.float(), Bc.float())
     M = scores * L  # (B,nc,i,j,nh)
     dx = xc.float() * dtc[..., None]  # dt-weighted inputs
@@ -203,7 +209,10 @@ def ssm_block(
     return out, new_cache
 
 
-def empty_ssm_cache(cfg, batch: int, device=None) -> dict:
+def empty_ssm_cache(cfg, batch: int, device="cuda") -> dict:
+    """Zero conv and SSD states for ``batch`` sequences on ``device`` (the
+    card unless the caller asks for the CPU, or ``meta`` for shapes only)."""
+    device = resolve_device(device)
     di, g, ds, nh, hd = cfg.d_inner, cfg.ssm_n_groups, cfg.ssm_state, cfg.ssm_n_heads, cfg.ssm_head_dim
     conv_dim = di + 2 * g * ds
     return {

@@ -22,7 +22,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -42,6 +44,10 @@ class SegmentPlan:
     @property
     def period(self) -> int:
         return len(self.kinds)
+
+    @property
+    def n_layers(self) -> int:
+        return self.period * self.n_repeat
 
     def window_array(self, all_kinds: List[LayerKind]) -> torch.Tensor:
         """(n_repeat, period) int32 window per layer (sentinel = full attention).
@@ -101,21 +107,23 @@ def _layer_desc(cfg: ModelConfig, kind: LayerKind) -> dict:
 def _segment_desc(cfg: ModelConfig, seg: SegmentPlan) -> dict:
     body = {f"pos{p}": _layer_desc(cfg, k) for p, k in enumerate(seg.kinds)}
     if seg.n_repeat > 1:
-        body = stack_descs(body, seg.n_repeat)
+        body = stack_descs(body, seg.n_repeat, stack_axis_name="layers")
     return body
 
 
 def model_desc(cfg: ModelConfig) -> dict:
-    d: Dict[str, Any] = {"embed": ParamDesc((cfg.padded_vocab, cfg.d_model), "embed")}
+    d: Dict[str, Any] = {
+        "embed": ParamDesc((cfg.padded_vocab, cfg.d_model), ("vocab", None), "embed"),
+    }
     if cfg.pos_embedding == "learned":
-        d["pos_embed"] = ParamDesc((cfg.max_seq_len, cfg.d_model), "embed")
+        d["pos_embed"] = ParamDesc((cfg.max_seq_len, cfg.d_model), (None, None), "embed")
     d["segments"] = [_segment_desc(cfg, s) for s in plan_segments(cfg.layer_kinds())]
     d["final_norm"] = norm_desc(cfg)
     if not cfg.tie_embeddings:
-        d["lm_head"] = ParamDesc((cfg.d_model, cfg.padded_vocab), "normal")
+        d["lm_head"] = ParamDesc((cfg.d_model, cfg.padded_vocab), (None, "vocab"), "normal")
     if cfg.enc_dec:
         d["encoder"] = {
-            "audio_pos": ParamDesc((cfg.n_audio_frames, cfg.d_model), "embed"),
+            "audio_pos": ParamDesc((cfg.n_audio_frames, cfg.d_model), (None, None), "embed"),
             "segments": [_segment_desc(cfg, s) for s in plan_segments(cfg.encoder_layer_kinds())],
             "final_norm": norm_desc(cfg),
         }
@@ -142,9 +150,12 @@ def _layer_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int, dt
     return c
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
-    """Zero caches in the reference's layout; a stacked body's leaves are
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda"):
+    """Zero caches in the reference's layout on ``device`` (the card unless the
+    caller asks for the CPU, or ``meta``); a stacked body's leaves are
     expanded views of one layer's zeros (the reference broadcasts them)."""
+    device = resolve_device(device)
     out = []
     for seg in plan_segments(cfg.layer_kinds()):
         body = {
@@ -241,11 +252,29 @@ def _apply_segment(
     enc_out,
     decode: bool,
     use_pallas: bool,
+    remat: bool = False,
 ):
     """Runs the body ``n_repeat`` times; returns ``(h, new_cache, aux)`` with
     the per-repeat caches stacked on a leading axis, as the reference's scan,
-    and the layers' MoE losses summed per repeat, then over repeats."""
+    and the layers' MoE losses summed per repeat, then over repeats.
+
+    With ``remat`` (and not decoding) every layer runs under
+    ``torch.utils.checkpoint``: the backward pass recomputes one layer's
+    internals at a time from its input, as the reference's per-layer
+    ``jax.checkpoint`` does."""
     windows = seg.window_array(all_kinds)  # (n_repeat, period)
+
+    def layer(kind, p, h, window, cache):
+        return _apply_layer(cfg, kind, p, h, window=window, positions=positions, cache=cache,
+                            cache_index=cache_index, enc_out=enc_out, decode=decode,
+                            use_pallas=use_pallas)
+
+    if remat and not decode:
+        plain = layer
+
+        def layer(*args):
+            return checkpoint(plain, *args, use_reentrant=False)
+
     new_caches = []
     aux_acc = 0.0
     for r in range(seg.n_repeat):
@@ -258,11 +287,8 @@ def _apply_segment(
         aux_r = 0.0
         for pidx, kind in enumerate(seg.kinds):
             key = f"pos{pidx}"
-            h, nc, aux = _apply_layer(
-                cfg, kind, params_r[key], h, window=windows[r, pidx], positions=positions,
-                cache=cache_r.get(key) if cache_r else None, cache_index=cache_index,
-                enc_out=enc_out, decode=decode, use_pallas=use_pallas,
-            )
+            h, nc, aux = layer(kind, params_r[key], h, windows[r, pidx],
+                               cache_r.get(key) if cache_r else None)
             if nc is not None:
                 new_cache_r[key] = nc
             aux_r = aux_r + aux
@@ -316,6 +342,7 @@ def forward(
     mode: str = "train",  # 'train' | 'prefill' | 'decode'
     cache=None,
     cache_index=None,  # decode: position of the first new token (an int)
+    remat: bool = False,  # per-layer recomputation in the backward pass
     use_pallas: bool = False,
     logits_mode: str = "full",  # 'full' | 'last' | 'hidden' (return pre-head h)
 ):
@@ -358,7 +385,7 @@ def forward(
         h, seg_new_cache, aux = _apply_segment(
             cfg, seg, seg_params, h, all_kinds=all_kinds, positions=positions,
             seg_cache=seg_cache, cache_index=cache_index, enc_out=enc_out, decode=decode,
-            use_pallas=use_pallas,
+            use_pallas=use_pallas, remat=remat,
         )
         aux_total = aux_total + aux
         if new_cache is not None:

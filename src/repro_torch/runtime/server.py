@@ -98,6 +98,7 @@ class SocketBackend(ClientBackend):
         self._done = False
         self._stop = threading.Event()
         self._conns: List[socket.socket] = []
+        self._conn_threads: List[threading.Thread] = []
         self._srv = socket.create_server((host, port))
         self._srv.settimeout(0.2)
         self.host, self.port = self._srv.getsockname()[:2]
@@ -168,14 +169,24 @@ class SocketBackend(ClientBackend):
             self._srv.close()
         except OSError:
             pass
+        self._accept_thread.join(timeout=2.0)
         with self._lock:
             conns, self._conns = self._conns, []
+            threads, self._conn_threads = self._conn_threads, []
         for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)  # wakes a thread blocked in recv
+            except OSError:
+                pass
             try:
                 c.close()
             except OSError:
                 pass
-        self._accept_thread.join(timeout=2.0)
+        # a connection thread still decoding a frame into tensors when the
+        # interpreter exits is killed inside torch, which aborts the process
+        # ("terminate called without an active exception"): wait for each
+        for th in threads:
+            th.join(timeout=self.io_timeout)
 
     # --- socket plumbing --------------------------------------------------
     def _accept_loop(self) -> None:
@@ -187,11 +198,13 @@ class SocketBackend(ClientBackend):
             except OSError:
                 return
             conn.settimeout(self.io_timeout)
+            th = threading.Thread(
+                target=self._serve, args=(conn,), name="runtime-conn", daemon=True
+            )
             with self._lock:
                 self._conns.append(conn)
-            threading.Thread(
-                target=self._serve, args=(conn,), name="runtime-conn", daemon=True
-            ).start()
+                self._conn_threads.append(th)
+            th.start()
 
     def _serve(self, conn: socket.socket) -> None:
         try:

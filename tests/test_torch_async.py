@@ -664,6 +664,30 @@ def test_cli_runs_two_updates_and_resume_continues_bitwise(tmp_path, uplink):
             assert got[k] == want[k], k
 
 
+@pytest.mark.parametrize("aggregation", ["sync", "async"])
+def test_a_checkpoint_round_is_committed_after_its_client_cursors(tmp_path, monkeypatch,
+                                                                   aggregation):
+    """The manifest commits a round: when it is written, every client cursor
+    of the round is on disk already, so a server killed between the two
+    leaves a partial round that ``--resume`` skips (a complete round without
+    its cursors would restart every client's stream)."""
+    save_server = CheckpointManager.save_server
+    committed = []
+
+    def checked_save_server(self, rnd, state, extra=None):
+        d = tmp_path / "ck" / f"round_{rnd:06d}"
+        missing = [i for i in range(4) if not (d / f"client_{i:04d}.json").exists()]
+        assert not missing, (rnd, missing)
+        committed.append(rnd)
+        return save_server(self, rnd, state, extra)
+
+    monkeypatch.setattr(CheckpointManager, "save_server", checked_save_server)
+    args = ASYNC if aggregation == "async" else ASYNC[:ASYNC.index("--aggregation")]
+    tt.run(tt.parse_args(args + ["--rounds", "2", "--device", "cpu",
+                                 "--ckpt-dir", str(tmp_path / "ck")]))
+    assert committed == [0, 1]
+
+
 @pytest.mark.parametrize("extra,match", [
     pytest.param(["--keep-opt"], "--keep-opt with --aggregation async",
                  id="--keep-opt---keep-opt with --aggregation async"),

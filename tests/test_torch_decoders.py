@@ -185,13 +185,16 @@ def test_chip_smoke_kernel_cases_come_from_the_configs():
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
-    """``Model.init``, ``ClientWorker``, ``SocketBackend`` and
-    ``empty_cache_desc`` called without ``device`` ask for the card; where
-    torch sees none, each raises instead of falling back to the CPU. With
-    ``device="cpu"`` each runs here."""
+    """``Model.init``, ``ClientWorker``, ``SocketBackend``,
+    ``empty_cache_desc``, ``Model.init_cache``, ``transformer.init_cache``,
+    ``ssm.empty_ssm_cache`` and ``common.init_params`` called without
+    ``device`` ask for the card; where torch sees none, each raises instead
+    of falling back to the CPU. With ``device="cpu"`` each runs here."""
     from repro_torch.core.federated import FederatedConfig
     from repro_torch.core.sampler import ParticipationConfig
+    from repro_torch.models import ssm, transformer
     from repro_torch.models.attention import empty_cache_desc
+    from repro_torch.models.common import init_params
     from repro_torch.runtime import ClientWorker, SocketBackend
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -203,6 +206,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
                                                   make_batches=lambda cid: None, **kw),
         "SocketBackend": lambda **kw: SocketBackend(port=0, **kw),
         "empty_cache_desc": lambda **kw: empty_cache_desc(model.cfg, 1, 4, torch.float32, **kw),
+        "Model.init_cache": lambda **kw: model.init_cache(1, 4, **kw),
+        "transformer.init_cache": lambda **kw: transformer.init_cache(model.cfg, 1, 4, **kw),
+        "ssm.empty_ssm_cache": lambda **kw: ssm.empty_ssm_cache(
+            t_configs.get_config("mamba2-1.3b").reduced(), 1, **kw),
+        "common.init_params": lambda **kw: init_params(0, model.desc(), **kw),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -993,3 +993,82 @@ def test_cuda_wrappers_raise_when_their_kernel_cannot_be_built(monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc failed"):
             call()
         assert (DK.flash_decode_fwd.launches, RK.rmsnorm_fwd.launches) == counts
+
+
+# ---------------------------------------------------------------------------
+# The mesh tooling on the card's one-device host mesh
+# ---------------------------------------------------------------------------
+
+
+#: the round the host-mesh step's update is held from: past the inner
+#: cosine's 100-step warmup at τ = 2 (at round 0 the rates are 0 and 3e-6)
+PAST_WARMUP = 100
+
+
+@pytest.mark.parametrize("uplink", ["float32", "int8"])
+def test_cuda_host_mesh_step_launches_the_fedcore_kernels_once_a_run_and_matches_the_cpu(uplink):
+    """Reduced mamba2-1.3b's federated step from ``launch/steps`` at float32
+    compute with ``fused_server``: one ``server_apply`` per run (and one
+    ``int8_quant`` and one ``int8_dequant`` under int8), counted by
+    ``roofline.analysis.measure``; the card's new params within 1e-4 of the
+    CPU's from the same inputs; the measured peak within the card. Then from
+    round ``PAST_WARMUP`` with a seeded FedMom lane, where the step moves the
+    params by ~1e-3: the card's update of the params and of the lane within
+    1e-3 of the CPU's, relative to the CPU update's norm."""
+    _need_cuda()
+    import dataclasses
+
+    from torch_parity import update_rel_err
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.autobatch import verify_micro_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step, materialize
+    from repro_torch.roofline.analysis import measure
+    from repro_torch.tree import params_to_numpy, tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b").reduced(), compute_dtype="float32")
+    shape = InputShape("train_4k", 64, 4, "train")
+    outs, updates = {}, {}
+    for dev in ("cpu", "cuda"):
+        step = build_train_step(cfg, shape, make_host_mesh(device=dev), tau_lowered=2,
+                                fused_server=True, uplink=uplink)
+        m = measure(step.fn, materialize(step, dev, seed=0), dev, keep_output=True)
+        outs[dev] = (m, tree_leaves(m.output[0]["params"]))
+        args = materialize(step, dev, seed=0)
+        gen = torch.Generator().manual_seed(3)
+        args[0]["round"] = PAST_WARMUP
+        args[0]["outer"]["momentum"] = tree_map(
+            lambda x: (torch.randn(x.shape, generator=gen) * 3e-4).to(dev), args[0]["params"])
+        lanes = lambda s: {"params": s["params"], "momentum": s["outer"]["momentum"]}  # noqa
+        start = {k: params_to_numpy(v) for k, v in lanes(args[0]).items()}
+        new_state = step.fn(*args)[0]
+        updates[dev] = (start, {k: params_to_numpy(v) for k, v in lanes(new_state).items()})
+    m = outs["cuda"][0]
+    want = {"server_apply": 1} if uplink == "float32" else {
+        "server_apply": 1, "int8_quant": 1, "int8_dequant": 1}
+    assert m.kernels_not_counted == want and outs["cpu"][0].kernels_not_counted == {}
+    assert m.flops > 0 and m.bytes > 0 and verify_micro_batch(m)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(outs["cuda"][1], outs["cpu"][1]))
+    assert err <= 1e-4, err
+    (start, got), (_, ref) = updates["cuda"], updates["cpu"]
+    errs = {k: update_rel_err(got[k], ref[k], start[k]) for k in ("params", "momentum")}
+    assert all(e <= 1e-3 for e in errs.values()), errs
+
+
+def test_cuda_host_dryrun_cli_measures_a_serve_step(tmp_path, monkeypatch, capsys):
+    """The host-mesh dry run on the card at reduced mamba2-1.3b's long_500k:
+    a measured peak, no kernel launched."""
+    _need_cuda()
+    import json
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: get_config(arch).reduced())
+    dryrun.main(["--mesh", "host", "--arch", "mamba2-1.3b", "--shape", "long_500k",
+                 "--out", str(tmp_path)])
+    assert "done; failures: 0" in capsys.readouterr().out
+    with open(tmp_path / "mamba2-1.3b__long_500k__host.json") as f:
+        r = json.load(f)
+    assert r["peak_memory_per_device"] > 0 and r["measured"]["kernels_not_counted"] == {}

@@ -23,6 +23,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 import zlib
 
 import numpy as np
@@ -333,6 +334,33 @@ def test_socket_run_with_worker_threads_is_bitwise_in_process(uplink):
     # every executed assignment ran one client phase (one encode each)
     assert sum(w.n_client_phases for w in workers) >= ref.n_client_phases
     assert backend.clock.frames > 0 and all(w.clock.frames > 0 for w in workers)
+
+
+def test_close_joins_every_connection_thread():
+    """``SocketBackend.close`` wakes and joins the threads serving its
+    connections, idle ones included: a thread left decoding a frame into
+    tensors when the interpreter exits aborts the server process."""
+    before = set(threading.enumerate())
+    backend = SocketBackend(port=0, lease_timeout=10.0, io_timeout=5.0, device="cpu")
+    clients = [socket.create_connection(("127.0.0.1", backend.port)) for _ in range(2)]
+
+    def conn_threads():
+        return [t for t in threading.enumerate()
+                if t.name == "runtime-conn" and t not in before]
+
+    try:
+        t0 = time.monotonic()
+        while len(conn_threads()) < 2 and time.monotonic() - t0 < 5.0:
+            time.sleep(0.01)
+        threads = conn_threads()
+        assert len(threads) == 2
+        t0 = time.monotonic()
+        backend.close()
+        assert not any(t.is_alive() for t in threads)
+        assert time.monotonic() - t0 < 4.0  # woken, not waited out to io_timeout
+    finally:
+        for c in clients:
+            c.close()
 
 
 def test_expired_lease_is_redispatched_to_a_live_worker():

@@ -88,9 +88,9 @@ def test_decode_step_from_a_carried_cache_matches_reference(arch):
     _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)})
     jc = j_merge(jm.init_cache(B, max_len), jc)
     # bf16 leaves cross as f32 (exactly); the port's merge casts them back
-    tc = t_serve.merge(tm.init_cache(B, max_len), params_from_numpy(jax_flat(jc), "cpu"))
+    tc = t_serve.merge(tm.init_cache(B, max_len, device="cpu"), params_from_numpy(jax_flat(jc), "cpu"))
     assert [t.dtype for _, t in flatten_with_paths(tc)] == \
-        [t.dtype for _, t in flatten_with_paths(tm.init_cache(B, max_len))]
+        [t.dtype for _, t in flatten_with_paths(tm.init_cache(B, max_len, device="cpu"))]
     tok = prompt(jm.cfg, B, 1, seed=4)
     jl, jn = jm.decode_step(jp, jc, jnp.asarray(tok), jnp.int32(S0))
     tl, tn = tm.decode_step(tp, tc, torch.from_numpy(tok), S0)

@@ -316,7 +316,7 @@ def test_ssm_block_prefill_and_decode_match_reference(use_pallas):
 
 def test_empty_ssm_cache_dtypes_and_shapes():
     jcfg, tcfg = j_get_config("mamba2-1.3b").reduced(), t_get_config("mamba2-1.3b").reduced()
-    jc, tc = j_ssm.empty_ssm_cache(jcfg, 3), t_ssm.empty_ssm_cache(tcfg, 3)
+    jc, tc = j_ssm.empty_ssm_cache(jcfg, 3), t_ssm.empty_ssm_cache(tcfg, 3, device="cpu")
     for k in ("conv", "ssd"):
         assert tuple(tc[k].shape) == jc[k].shape
     assert tc["conv"].dtype == torch.bfloat16 and tc["ssd"].dtype == torch.float32
@@ -328,9 +328,47 @@ def test_ssm_inits_draw_the_reference_distributions():
     are the reference's: A_log = log U[1, 16], softplus(dt_bias) ∈ [1e-3, 1e-1]."""
     from repro_torch.models.common import ParamDesc, init_params
 
-    p = init_params(0, {"a": ParamDesc((4096,), "ssm_a"), "d": ParamDesc((4096,), "ssm_dt")})
+    p = init_params(0, {"a": ParamDesc((4096,), (None,), "ssm_a"),
+                        "d": ParamDesc((4096,), (None,), "ssm_dt")}, device="cpu")
     a, dt = torch.exp(p["a"]), torch.nn.functional.softplus(p["d"])
     assert float(a.min()) >= 1.0 and float(a.max()) <= 16.0
     assert float(dt.min()) >= 1e-3 * (1 - 1e-5) and float(dt.max()) <= 1e-1 * (1 + 1e-5)
     assert 7.0 < float(a.mean()) < 10.0  # E[U[1, 16]] = 8.5
     assert 0.04 < float(dt.mean()) < 0.06  # E[U[1e-3, 1e-1]] = 0.0505
+
+
+def test_ssd_chunked_gradient_stays_finite_where_the_decay_overflows():
+    """With fast decay (dt·|A| = 16 a step over a 16-token chunk) the decay
+    above the diagonal reaches 240 and exp overflows to inf. The port masks
+    before the exponential: its loss equals the reference's (the forward
+    values do not depend on where the mask goes) and every gradient is
+    finite, where the reference, which masks after, gives NaN ones."""
+    import jax
+    import jax.numpy as jnp
+
+    from torch_parity import (FAMILY_TOL, assert_close, family_pair, family_tokens, jax_flat,
+                              jax_to_torch)
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    jm, tm, jp, _ = family_pair("mamba2-1.3b")
+    assert jm.cfg.ssm_chunk == 16
+
+    def fast(path, x):
+        name = jax.tree_util.keystr(path)
+        if name.endswith("['A_log']"):
+            return jnp.full_like(x, np.log(16.0))
+        if name.endswith("['dt_bias']"):
+            return jnp.full_like(x, np.log(np.expm1(1.0)))  # softplus = 1
+        return x
+
+    jp = jax.tree_util.tree_map_with_path(fast, jp)
+    toks = family_tokens(jm.cfg, 2, 48, seed=3)
+    (jl, _), jg = jax.value_and_grad(jm.loss, has_aux=True)(jp, {"tokens": jnp.asarray(toks)})
+    assert not all(np.isfinite(v).all() for v in jax_flat(jg).values())
+    leaves, treedef = tree_flatten(jax_to_torch(jp))
+    leaves = [x.requires_grad_(True) for x in leaves]
+    tl, _ = tm.loss(tree_unflatten(treedef, leaves), {"tokens": torch.from_numpy(toks)})
+    grads = torch.autograd.grad(tl, leaves)
+    assert_close(float(tl.detach()), float(jl), rtol=FAMILY_TOL, what="loss")
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert max(float(g.abs().max()) for g in grads) > 0

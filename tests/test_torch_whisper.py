@@ -126,7 +126,7 @@ def test_prefill_matches_reference():
 def test_init_cache_matches_reference_layout():
     jm, tm, _, _ = pair(ARCH)
     want = {k: v.shape for k, v in jax_flat(jm.init_cache(2, 30)).items()}
-    got = {k: tuple(v.shape) for k, v in flatten_with_paths(tm.init_cache(2, 30))}
+    got = {k: tuple(v.shape) for k, v in flatten_with_paths(tm.init_cache(2, 30, device="cpu"))}
     assert got == want
     assert got["[0]['pos0']['cross']['v']"] == (2, 2, 16, 2, 64)
 
@@ -140,7 +140,7 @@ def test_decode_step_from_a_carried_cache_matches_reference():
     jb, _ = batches(prompt(jm.cfg, B, S0, seed=4), audio(jm.cfg, B, seed=4))
     _, jc = jm.prefill(jp, jb)
     jc = j_merge(jm.init_cache(B, max_len), jc)
-    tc = t_serve.merge(tm.init_cache(B, max_len), params_from_numpy(jax_flat(jc), "cpu"))
+    tc = t_serve.merge(tm.init_cache(B, max_len, device="cpu"), params_from_numpy(jax_flat(jc), "cpu"))
     tok = prompt(jm.cfg, B, 1, seed=5)
     jl, jn = jm.decode_step(jp, jc, jnp.asarray(tok), jnp.int32(S0))
     tl, tn = tm.decode_step(tp, tc, torch.from_numpy(tok), S0)

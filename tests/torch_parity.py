@@ -66,6 +66,21 @@ def assert_trees_close(torch_tree, jax_tree, *, atol=0.0, rtol=0.0):
         assert_close(got[k], want[k], atol=atol, rtol=rtol, what=k)
 
 
+def update_rel_err(got: dict, want: dict, start: dict) -> float:
+    """How far the update ``got − start`` is from ``want − start`` (flat
+    ``{key: ndarray}`` trees): the global L2 norm of the difference over that
+    of ``want − start``. It reads the update, not the values it moved, so an
+    update that moves nothing, or moves the wrong way, is off by 1 or more."""
+    assert sorted(got) == sorted(want) == sorted(start)
+    num = den = 0.0
+    for k in want:
+        w = np.asarray(want[k], np.float64)
+        num += float(np.sum((np.asarray(got[k], np.float64) - w) ** 2))
+        den += float(np.sum((w - np.asarray(start[k], np.float64)) ** 2))
+    assert den > 0.0, "the reference update is zero"
+    return float(np.sqrt(num / den))
+
+
 def assert_metrics_close(got: dict, want: dict, *, rtol: float, atol: float = 1e-7,
                          skip=()):
     """Every reference metric is present in ``got`` and agrees to ``rtol``."""
