@@ -98,7 +98,8 @@ from repro_torch.core.sampler import (
     plan_round,
 )
 from repro_torch.obs.metrics import observe_staleness
-from repro_torch.obs.tracer import get_tracer
+from repro_torch.obs.phases import phase, round_phases
+from repro_torch.obs.tracer import NULL_TRACER, get_tracer
 from repro_torch.tree import clone, global_norm, tree_leaves, tree_map
 
 #: version tag of the checkpoint schema, shared with the reference
@@ -330,31 +331,39 @@ class SyncAggregator(Aggregator):
         if t.enabled:
             t.begin("round", span_id=f"r{rid}", round=rid,
                     effective_k=float(plan.effective_k), track=0)
-        w = self.round_weights(plan)
-        if rs is not None and rs.quarantine:
-            q = np.asarray([rs.is_quarantined(int(c), rid) for c in np.asarray(plan.selected)])
-            if q.any():
-                w = np.where(q, np.float32(0.0), w).astype(np.float32)
-        if self.cohort_tile is not None:
-            metrics = self._run_round_tiled(batches, plan, w)
-        else:
-            metrics = self._run_round_flat(batches, plan, w)
-        metrics = dict(metrics)
-        screen_mask = metrics.pop("screen_mask", None)
-        if screen_mask is not None and rs is not None:
-            flagged = np.nonzero(screen_mask.cpu().numpy() > 0)[0]
-            if len(flagged):
-                sel = np.asarray(plan.selected)
-                cids = [int(sel[i]) for i in flagged]
-                rs.note_screen_rejects(len(cids))
-                rs.add_quarantine(cids, rid)
-                if t.enabled:
-                    for cid in cids:
-                        t.point("screen_reject", parent=f"r{rid}", client=cid, round=rid)
-                        t.count("screen_rejects")
+        # a flat round's phase spans (obs/phases); a tiled round keeps only its round span
+        with round_phases(t if self.cohort_tile is None else NULL_TRACER, f"r{rid}",
+                          self.device) as phases:
+            w = self.round_weights(plan)
+            if rs is not None and rs.quarantine:
+                q = np.asarray([rs.is_quarantined(int(c), rid)
+                                for c in np.asarray(plan.selected)])
+                if q.any():
+                    w = np.where(q, np.float32(0.0), w).astype(np.float32)
+            if self.cohort_tile is not None:
+                metrics = self._run_round_tiled(batches, plan, w)
+            else:
+                metrics = self._run_round_flat(batches, plan, w)
+            metrics = dict(metrics)
+            screen_mask = metrics.pop("screen_mask", None)
+            if screen_mask is not None and rs is not None:
+                with phase("screen"):
+                    flagged = np.nonzero(screen_mask.cpu().numpy() > 0)[0]
+                if len(flagged):
+                    sel = np.asarray(plan.selected)
+                    cids = [int(sel[i]) for i in flagged]
+                    rs.note_screen_rejects(len(cids))
+                    rs.add_quarantine(cids, rid)
+                    if t.enabled:
+                        for cid in cids:
+                            t.point("screen_reject", parent=f"r{rid}", client=cid, round=rid)
+                            t.count("screen_rejects")
+            if t.enabled:
+                with phase("readout"):
+                    attrs = trace_attrs(metrics)  # the one device read tracing pays
+                rollup = phases.finish() if phases is not None else {}
         if t.enabled:
-            attrs = trace_attrs(metrics)  # the one device read tracing pays
-            t.end(f"r{rid}", **attrs)
+            t.end(f"r{rid}", **attrs, **rollup)
             t.count("rounds")
             t.gauge("round", rid + 1)
             for k, v in attrs.items():
@@ -369,15 +378,18 @@ class SyncAggregator(Aggregator):
         stand-in for the reference's buffer donation."""
         tau = self.tau_steps(plan) if self.partial_progress else None
         stateful = self.residual_store is not None
-        residuals = self.residual_store.gather(plan.selected) if stateful else None
+        with phase("prologue"):
+            residuals = self.residual_store.gather(plan.selected) if stateful else None
+            client_weights = torch.from_numpy(w).to(self.device)
         self.state, metrics = federated_round(
             self._loss_fn, self.fed, self.state, batches,
-            client_weights=torch.from_numpy(w).to(self.device), tau_steps=tau,
+            client_weights=client_weights, tau_steps=tau,
             apply_fn=self._apply_fn, codec=self.codec, residuals=residuals,
         )
         if stateful:
             # the cohort's updated rows belong in the population store
-            self.residual_store.scatter(plan.selected, self.state.pop("uplink_residuals"))
+            with phase("scatter"):
+                self.residual_store.scatter(plan.selected, self.state.pop("uplink_residuals"))
         return metrics
 
     def _run_round_tiled(self, batches, plan: ParticipationPlan, w: np.ndarray

@@ -43,6 +43,7 @@ import torch
 from repro_torch.core.compression import Codec
 from repro_torch.core.inner_opt import InnerOptConfig, init_inner_state, inner_update
 from repro_torch.core.outer_opt import OuterOptConfig, init_outer_state, outer_update
+from repro_torch.obs.phases import phase
 from repro_torch.tree import (
     global_norm,
     tree_flatten,
@@ -206,136 +207,152 @@ def run_clients(
     first τ_c steps and holds its params after that. A zero-weight client
     still trains (its delta is weighted out), as in the reference, but keeps
     its old residual bitwise: it never uploaded."""
-    C, tau = fed.clients_per_round, fed.local_steps
-    elastic = client_weights is not None
-    part = None
-    if elastic:
-        w_host = _host_f32(client_weights)
-        part = (w_host > 0).astype(np.float32)
-        metric_w = part / np.maximum(np.sum(part), np.float32(1.0))
-    global_leaves, treedef = tree_flatten(state["params"])
-    device = global_leaves[0].device
-    seq_step0 = int(state["round"]) * tau
-    if tau_steps is not None:
-        tau_steps = np.asarray(tau_steps, np.int64)
+    with phase("clients"):
+        C, tau = fed.clients_per_round, fed.local_steps
+        elastic = client_weights is not None
+        part = None
+        with phase("buffers"):
+            if elastic:
+                w_host = _host_f32(client_weights)
+                part = (w_host > 0).astype(np.float32)
+                metric_w = part / np.maximum(np.sum(part), np.float32(1.0))
+            global_leaves, treedef = tree_flatten(state["params"])
+            device = global_leaves[0].device
+            seq_step0 = int(state["round"]) * tau
+            if tau_steps is not None:
+                tau_steps = np.asarray(tau_steps, np.int64)
 
-    deltas = [torch.empty((C,) + tuple(g.shape), dtype=torch.float32, device=device)
-              for g in global_leaves]
-    client_sum = [torch.zeros(g.shape, dtype=g.dtype, device=device) for g in global_leaves]
-    client_norms = []
-    inner_out = None
-    if fed.keep_inner_state:
-        inner_out = tree_map(
-            lambda x: x.clone() if isinstance(x, torch.Tensor) else np.array(x),
-            state["inner"],
-        )
-    records: List[List[Optional[Dict[str, Any]]]] = [[None] * C for _ in range(tau)]
-
-    for c in range(C):
-        params = [g.detach().clone() for g in global_leaves]
-        if fed.keep_inner_state:
-            inner = {k: [x[c].clone() for x in tree_leaves(v)]
-                     for k, v in state["inner"].items() if k != "count"}
-            inner["count"] = int(state["inner"]["count"][c])
-        else:
-            inner = init_inner_state(fed.inner, params)
-        steps = tau if tau_steps is None else int(min(tau, tau_steps[c]))
-        for t in range(steps):
-            batch_t = {k: v[t, c] for k, v in batches.items()}
-            loss, metrics, grads = _accum_value_and_grad(
-                loss_fn, treedef, params, batch_t, fed.grad_accum, pre_split=fed.pre_split_micro
-            )
-            if fed.fedprox_mu > 0.0:
-                grads = [g + fed.fedprox_mu * (p - gp)
-                         for g, p, gp in zip(grads, params, global_leaves)]
-            params, inner, opt_metrics = inner_update(
-                fed.inner, params, grads, inner, seq_step0 + t
-            )
-            records[t][c] = dict(metrics, **opt_metrics)
-
-        with torch.no_grad():
-            for i, (g, p) in enumerate(zip(global_leaves, params)):
-                deltas[i][c] = g.float() - p.float()
-            client_norms.append(global_norm(params))
-            wc = float(w_host[c]) if elastic else 1.0
-            for acc, p in zip(client_sum, params):
-                acc.add_(p * wc if elastic else p)
-        if fed.keep_inner_state and (not elastic or w_host[c] > 0):
-            # a zero-weight client never really ran: it keeps its old state
-            for k, lane in inner_out.items():
-                if k == "count":
-                    lane[c] = inner["count"]
-                else:
-                    for dst, src in zip(tree_leaves(lane), inner[k]):
-                        dst[c] = src
-        del params, inner
-
-    with torch.no_grad():
-        if fed.dp_clip > 0.0:
-            norms = torch.sqrt(sum(torch.sum(torch.square(d).reshape(C, -1), dim=1)
-                                   for d in deltas))
-            scale = torch.clamp(fed.dp_clip / (norms + 1e-9), max=1.0)
-            deltas = [d * scale.reshape((-1,) + (1,) * (d.ndim - 1)) for d in deltas]
-        out = new_residuals = None
-        if codec is not None:  # encoded uplink: deltas leave as codec payloads
-            rngs = uplink_keys(state, C) if codec.needs_rng else None
-            if codec.stateful and residuals is None:  # first-ever upload
-                residuals = tree_map(lambda d: torch.zeros_like(d), tree_unflatten(treedef, deltas))
-            out, new_residuals = codec.encode_cohort(
-                tree_unflatten(treedef, deltas), residuals if codec.stateful else None, rngs
-            )
-            if codec.stateful and elastic:
-                # a masked client never uploaded: its residual stays bitwise
-                keep = torch.from_numpy(w_host > 0).to(device)
-                new_residuals = tree_map(
-                    lambda n, o: torch.where(keep.reshape((-1,) + (1,) * (n.ndim - 1)), n, o),
-                    new_residuals, residuals,
+            deltas = [torch.empty((C,) + tuple(g.shape), dtype=torch.float32, device=device)
+                      for g in global_leaves]
+            client_sum = [torch.zeros(g.shape, dtype=g.dtype, device=device) for g in global_leaves]
+            client_norms = []
+            inner_out = None
+            if fed.keep_inner_state:
+                inner_out = tree_map(
+                    lambda x: x.clone() if isinstance(x, torch.Tensor) else np.array(x),
+                    state["inner"],
                 )
-        elif fed.pseudo_grad_dtype != "float32":
-            dt = getattr(torch, fed.pseudo_grad_dtype)
-            deltas = [d.to(dt).float() for d in deltas]
+        records: List[List[Optional[Dict[str, Any]]]] = [[None] * C for _ in range(tau)]
 
-        client_norms = torch.stack(client_norms)
-        if elastic:
-            client_norm_mean = torch.sum(client_norms * torch.from_numpy(metric_w).to(device))
-            w_sum = float(np.maximum(np.sum(w_host), np.float32(1e-12)))
-            avg_client_norm = global_norm([s / w_sum for s in client_sum])
-        else:
-            client_norm_mean = torch.mean(client_norms)
-            avg_client_norm = global_norm([s / C for s in client_sum])
+        for c in range(C):
+            with phase("client", c):
+                with phase("init"):
+                    params = [g.detach().clone() for g in global_leaves]
+                    if fed.keep_inner_state:
+                        inner = {k: [x[c].clone() for x in tree_leaves(v)]
+                                 for k, v in state["inner"].items() if k != "count"}
+                        inner["count"] = int(state["inner"]["count"][c])
+                    else:
+                        inner = init_inner_state(fed.inner, params)
+                steps = tau if tau_steps is None else int(min(tau, tau_steps[c]))
+                for t in range(steps):
+                    with phase("step", t):
+                        with phase("fwd_bwd"):
+                            batch_t = {k: v[t, c] for k, v in batches.items()}
+                            loss, metrics, grads = _accum_value_and_grad(
+                                loss_fn, treedef, params, batch_t, fed.grad_accum,
+                                pre_split=fed.pre_split_micro
+                            )
+                        with phase("opt"):
+                            if fed.fedprox_mu > 0.0:
+                                grads = [g + fed.fedprox_mu * (p - gp)
+                                         for g, p, gp in zip(grads, params, global_leaves)]
+                            params, inner, opt_metrics = inner_update(
+                                fed.inner, params, grads, inner, seq_step0 + t
+                            )
+                            records[t][c] = dict(metrics, **opt_metrics)
 
-    step_w, last_live = _step_weights(C, tau, part, tau_steps)
-    keys = next(r for row in records for r in row if r is not None).keys()
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    step_metrics = {}
-    for k in keys:
-        v = torch.stack([
-            torch.stack([torch.as_tensor(records[t][c][k], dtype=torch.float32, device=device)
-                         if records[t][c] is not None else zero for c in range(C)])
-            for t in range(tau)
-        ])  # (τ, C)
-        if step_w is None:
-            per_step = torch.mean(v, dim=1)
-        else:
-            per_step = torch.sum(v * torch.from_numpy(np.ascontiguousarray(step_w)).to(device),
-                                 dim=1)
-        step_metrics[k] = per_step[torch.from_numpy(last_live).to(device)]
+                with phase("delta"):
+                    with torch.no_grad():
+                        for i, (g, p) in enumerate(zip(global_leaves, params)):
+                            deltas[i][c] = g.float() - p.float()
+                        client_norms.append(global_norm(params))
+                        wc = float(w_host[c]) if elastic else 1.0
+                        for acc, p in zip(client_sum, params):
+                            acc.add_(p * wc if elastic else p)
+                    if fed.keep_inner_state and (not elastic or w_host[c] > 0):
+                        # a zero-weight client never really ran: it keeps its old state
+                        for k, lane in inner_out.items():
+                            if k == "count":
+                                lane[c] = inner["count"]
+                            else:
+                                for dst, src in zip(tree_leaves(lane), inner[k]):
+                                    dst[c] = src
+                    del params, inner
 
-    aux = {
-        "inner": inner_out,
-        "step_metrics": step_metrics,
-        "client_model_norm_mean": client_norm_mean,
-        "avg_client_model_norm": avg_client_norm,
-    }
-    if new_residuals is not None:
-        with torch.no_grad():
-            res_norms = _client_norms(new_residuals)  # (C,) EF telemetry
-            aux["residuals"] = new_residuals
-            aux["uplink_residual_norm"] = (
-                torch.sum(res_norms * torch.from_numpy(metric_w).to(device)) if elastic
-                else torch.mean(res_norms)
-            )
-    return (out if codec is not None else tree_unflatten(treedef, deltas)), aux
+        out = new_residuals = None
+        if fed.dp_clip > 0.0 or codec is not None or fed.pseudo_grad_dtype != "float32":
+            with phase("encode"), torch.no_grad():
+                if fed.dp_clip > 0.0:
+                    norms = torch.sqrt(sum(torch.sum(torch.square(d).reshape(C, -1), dim=1)
+                                           for d in deltas))
+                    scale = torch.clamp(fed.dp_clip / (norms + 1e-9), max=1.0)
+                    deltas = [d * scale.reshape((-1,) + (1,) * (d.ndim - 1)) for d in deltas]
+                if codec is not None:  # encoded uplink: deltas leave as codec payloads
+                    rngs = uplink_keys(state, C) if codec.needs_rng else None
+                    if codec.stateful and residuals is None:  # first-ever upload
+                        residuals = tree_map(lambda d: torch.zeros_like(d),
+                                             tree_unflatten(treedef, deltas))
+                    out, new_residuals = codec.encode_cohort(
+                        tree_unflatten(treedef, deltas), residuals if codec.stateful else None, rngs
+                    )
+                    if codec.stateful and elastic:
+                        # a masked client never uploaded: its residual stays bitwise
+                        keep = torch.from_numpy(w_host > 0).to(device)
+                        new_residuals = tree_map(
+                            lambda n, o: torch.where(keep.reshape((-1,) + (1,) * (n.ndim - 1)),
+                                                     n, o),
+                            new_residuals, residuals,
+                        )
+                elif fed.pseudo_grad_dtype != "float32":
+                    dt = getattr(torch, fed.pseudo_grad_dtype)
+                    deltas = [d.to(dt).float() for d in deltas]
+
+        with phase("step_metrics"):
+            with torch.no_grad():
+                client_norms = torch.stack(client_norms)
+                if elastic:
+                    client_norm_mean = torch.sum(
+                        client_norms * torch.from_numpy(metric_w).to(device))
+                    w_sum = float(np.maximum(np.sum(w_host), np.float32(1e-12)))
+                    avg_client_norm = global_norm([s / w_sum for s in client_sum])
+                else:
+                    client_norm_mean = torch.mean(client_norms)
+                    avg_client_norm = global_norm([s / C for s in client_sum])
+
+            step_w, last_live = _step_weights(C, tau, part, tau_steps)
+            keys = next(r for row in records for r in row if r is not None).keys()
+            zero = torch.zeros((), dtype=torch.float32, device=device)
+            step_metrics = {}
+            for k in keys:
+                v = torch.stack([
+                    torch.stack([torch.as_tensor(records[t][c][k], dtype=torch.float32,
+                                                 device=device)
+                                 if records[t][c] is not None else zero for c in range(C)])
+                    for t in range(tau)
+                ])  # (τ, C)
+                if step_w is None:
+                    per_step = torch.mean(v, dim=1)
+                else:
+                    per_step = torch.sum(
+                        v * torch.from_numpy(np.ascontiguousarray(step_w)).to(device), dim=1)
+                step_metrics[k] = per_step[torch.from_numpy(last_live).to(device)]
+
+            aux = {
+                "inner": inner_out,
+                "step_metrics": step_metrics,
+                "client_model_norm_mean": client_norm_mean,
+                "avg_client_model_norm": avg_client_norm,
+            }
+            if new_residuals is not None:
+                with torch.no_grad():
+                    res_norms = _client_norms(new_residuals)  # (C,) EF telemetry
+                    aux["residuals"] = new_residuals
+                    aux["uplink_residual_norm"] = (
+                        torch.sum(res_norms * torch.from_numpy(metric_w).to(device)) if elastic
+                        else torch.mean(res_norms)
+                    )
+        return (out if codec is not None else tree_unflatten(treedef, deltas)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -459,12 +476,14 @@ def apply_aggregate(
     pseudo-gradients (decoded first when a ``codec`` encoded them), optional DP
     noise, the outer update. Leaves ``state`` untouched and returns the new one."""
     if codec is not None:
-        deltas = codec.decode_cohort(deltas)
-    if client_weights is not None:
-        pseudo_grad = _weighted_mean_clients(deltas, client_weights.float())
-    else:
-        pseudo_grad = tree_map(lambda x: torch.mean(x, dim=0), deltas)
-    return _finish_aggregate(fed, state, pseudo_grad, _client_norms(deltas), client_weights)
+        with phase("decode"):
+            deltas = codec.decode_cohort(deltas)
+    with phase("apply"):
+        if client_weights is not None:
+            pseudo_grad = _weighted_mean_clients(deltas, client_weights.float())
+        else:
+            pseudo_grad = tree_map(lambda x: torch.mean(x, dim=0), deltas)
+        return _finish_aggregate(fed, state, pseudo_grad, _client_norms(deltas), client_weights)
 
 
 def _finish_aggregate(fed, state, pseudo_grad, delta_norms, client_weights):
@@ -508,21 +527,23 @@ def federated_round(
     metrics; :func:`federated_round_with_uplink` keeps them population-keyed."""
     deltas, aux = run_clients(loss_fn, fed, state, batches, client_weights=client_weights,
                               tau_steps=tau_steps, codec=codec, residuals=residuals)
-    new_state, agg_metrics = (apply_fn or apply_aggregate)(
-        fed, state, deltas, client_weights=client_weights, codec=codec
-    )
+    with phase("server"):
+        new_state, agg_metrics = (apply_fn or apply_aggregate)(
+            fed, state, deltas, client_weights=client_weights, codec=codec
+        )
     del deltas
-    sm = aux["step_metrics"]
-    metrics = {
-        "train_loss": sm["loss"][-1],
-        "train_loss_mean": torch.mean(sm["loss"]),
-        "client_grad_norm": sm["grad_norm"][-1],
-        "applied_update_norm": sm["applied_update_norm"][-1],
-        "lr": sm["lr"][-1],
-        "client_model_norm_mean": aux["client_model_norm_mean"],
-        "avg_client_model_norm": aux["avg_client_model_norm"],
-        **agg_metrics,
-    }
+    with phase("epilogue"):
+        sm = aux["step_metrics"]
+        metrics = {
+            "train_loss": sm["loss"][-1],
+            "train_loss_mean": torch.mean(sm["loss"]),
+            "client_grad_norm": sm["grad_norm"][-1],
+            "applied_update_norm": sm["applied_update_norm"][-1],
+            "lr": sm["lr"][-1],
+            "client_model_norm_mean": aux["client_model_norm_mean"],
+            "avg_client_model_norm": aux["avg_client_model_norm"],
+            **agg_metrics,
+        }
     if fed.keep_inner_state:
         new_state["inner"] = aux["inner"]
     if "residuals" in aux:

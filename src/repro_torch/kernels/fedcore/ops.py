@@ -38,6 +38,7 @@ from repro_torch.core.compression import (
 )
 from repro_torch.core.federated import aggregation_metrics, dp_noise_scale, split_rng
 from repro_torch.core.outer_opt import OUTER_LANES, adam_bias_corrections
+from repro_torch.obs.phases import phase
 from repro_torch.kernels.fedcore import kernel as K
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -152,7 +153,15 @@ def fused_apply_aggregate(
     dtype group. Leaves ``state`` untouched: the kernel writes the new params
     and lanes over freshly packed copies, which the new state then views."""
     if codec is not None:
-        deltas = codec.decode_cohort(deltas)
+        with phase("decode"):
+            deltas = codec.decode_cohort(deltas)
+    with phase("apply"):
+        return _apply_flat(fed, state, deltas, client_weights)
+
+
+def _apply_flat(fed, state, deltas, client_weights):
+    """:func:`fused_apply_aggregate` after the decode: packing, ``server_apply``
+    per dtype group, the new state and the metrics."""
     d_leaves = tree_leaves(deltas)
     C = d_leaves[0].shape[0]
     device = d_leaves[0].device

@@ -94,11 +94,24 @@ class Tracer:
         """Close a span by id; ``attrs`` (e.g. the outcome) land on the E event."""
         if not self.enabled:
             return
+        ev = self.stamp_end(span_id)
+        ev.attrs.update(attrs)
+        self._emit(ev)
+
+    def stamp_end(self, span_id: str) -> Optional[Event]:
+        """Close a span by id and return its E event, stamped now but not
+        emitted: the caller adds attrs it learns later and passes it to
+        :meth:`emit` (``obs/phases``: device times read after the round)."""
+        if not self.enabled:
+            return None
         with self._lock:
             parent = self._open_parents.pop(span_id, None)
-        self._emit(
-            make_event("end", "E", self.proc, self.trace_id, span_id, parent, attrs)
-        )
+        return make_event("end", "E", self.proc, self.trace_id, span_id, parent, {})
+
+    def emit(self, ev: Event) -> None:
+        """Record an event made by :meth:`stamp_end`."""
+        if self.enabled:
+            self._emit(ev)
 
     @contextmanager
     def span(

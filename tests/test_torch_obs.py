@@ -15,6 +15,7 @@
 - Both CLIs' traced async ``--rollback`` runs from a shared checkpoint emit
   the ``rollback`` instant at the same update.
 """
+import dataclasses
 import json
 import math
 import shutil
@@ -256,9 +257,21 @@ def test_traced_sync_rounds_are_the_references_event_sequence(tmp_path):
             agg.run_round(batches, agg.plan(r))
     files = _traced_pair(tmp_path, build, 3)
     jev, tev = JO.load_run(files["j"]), TO.load_run(files["t"])
-    _assert_same_sequence(jev, tev)
-    ends = [e for e in tev if e.ph == "E"]
+    # the port adds phase spans inside each round (obs/phases) and their
+    # rollup on the round's E event: compare the reference's spans and keys
+    ref_spans = {e.span for e in jev}
+    ref_keys = {k for e in jev for k in e.attrs}
+    own = [dataclasses.replace(e, attrs={k: v for k, v in e.attrs.items() if k in ref_keys})
+           for e in tev if e.span in ref_spans]
+    _assert_same_sequence(jev, own)
+    ends = [e for e in own if e.ph == "E"]
     assert len(ends) == 3 and {"train_loss", "pseudo_grad_norm"} <= set(ends[0].attrs)
+    # the port's extra spans: each round's phase tree, ids under the round's
+    extra = [e for e in tev if e.ph == "B" and e.span not in ref_spans]
+    ids = {e.span for e in extra}
+    assert len(extra) == 3 * (8 + 3 * (3 + 3 * TAU))
+    assert {e.span.split("/")[0] for e in extra} == {"r0", "r1", "r2"}
+    assert all(e.parent in ids | {e.span.split("/")[0]} for e in extra)
 
 
 @pytest.mark.parametrize("codec", [None, "int8", "topk"])
@@ -285,16 +298,20 @@ def test_tracing_leaves_sync_rounds_bitwise_unchanged(tmp_path):
     fed = T.FederatedConfig(clients_per_round=3, local_steps=TAU)
     pcfg = T.ParticipationConfig(population=6, clients_per_round=3, dropout_rate=0.3)
     batches = tree_map(torch.from_numpy, _np_batches(0, 3))
-    out = []
-    for tracer in (None, TO.Tracer(TO.JsonlSink(str(tmp_path / "s.jsonl")), proc="server")):
-        agg = T.SyncAggregator(_quad_t, fed, pcfg, seed=2, tracer=tracer,
-                               params=tree_map(torch.from_numpy, _np_params()))
-        rows = [{k: float(v) for k, v in agg.run_round(batches, agg.plan(r)).items()}
-                for r in range(3)]
-        out.append((rows, params_to_numpy(agg.state["params"])))
-    assert out[0][0] == out[1][0]
-    for k, v in out[0][1].items():
-        np.testing.assert_array_equal(out[1][1][k], v, err_msg=k)
+    for codec in (None, "int8"):  # the per-leaf server phase; the int8 uplink, fused
+        out = []
+        for tracer in (None, TO.Tracer(TO.JsonlSink(str(tmp_path / f"{codec}.jsonl")),
+                                       proc="server")):
+            agg = T.SyncAggregator(_quad_t, fed, pcfg, seed=2, tracer=tracer,
+                                   codec=T.get_codec(codec, 0.25, fused=True) if codec else None,
+                                   fused_server=codec is not None,
+                                   params=tree_map(torch.from_numpy, _np_params()))
+            rows = [{k: float(v) for k, v in agg.run_round(batches, agg.plan(r)).items()}
+                    for r in range(3)]
+            out.append((rows, params_to_numpy(agg.state["params"])))
+        assert out[0][0] == out[1][0], codec
+        for k, v in out[0][1].items():
+            np.testing.assert_array_equal(out[1][1][k], v, err_msg=f"{codec} {k}")
 
 
 def test_report_cli_checks_and_exports_a_trace(tmp_path, capsys):
@@ -345,7 +362,8 @@ def test_both_clis_trace_the_rollback_at_the_same_update(tmp_path):
 
 def test_cli_serves_metrics_and_traces_a_sync_run(tmp_path, capsys):
     """``--trace`` and ``--metrics-port 0`` on the sync CLI: the port is
-    printed, and the trace holds one closed round span per round."""
+    printed, and the trace holds one closed round span per round, each with
+    its closed phase spans under it."""
     path = tmp_path / "sync.jsonl"
     tt.run(tt.parse_args(["--reduced", "--rounds", "2", "--local-steps", "2", "--clients", "2",
                           "--population", "4", "--seq-len", "64", "--eval-batches", "1",
@@ -353,5 +371,6 @@ def test_cli_serves_metrics_and_traces_a_sync_run(tmp_path, capsys):
     assert "metrics serving on 127.0.0.1:" in capsys.readouterr().out
     events = TO.load_run(str(path))
     closed, opened = TO.span_pairs(events)
-    assert [c["span"] for c in closed] == ["r0", "r1"] and not opened
+    assert [c["span"] for c in closed if c["name"] == "round"] == ["r0", "r1"] and not opened
+    assert all(c["span"].split("/")[0] in ("r0", "r1") for c in closed)
     assert events[-1].name == "counters" and events[-1].attrs["counters"]["rounds"] == 2.0
