@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
@@ -30,7 +31,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDesc, apply_norm, norm_desc, stack_descs
-from repro_torch.tree import tree_map, tree_stack
+from repro_torch.tree import tree_flatten, tree_map, tree_stack, tree_unflatten
 
 WINDOW_SENTINEL = 1 << 30  # "no window": mask (qpos - kpos < sentinel) is always true
 
@@ -239,6 +240,68 @@ def _cross_attend_cached(p: dict, x: torch.Tensor, cross_cache: dict) -> torch.T
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
 
+class _StackGrads:
+    """The gradient buffers of one forward's stacked leaves, filled row by row
+    in the backward (:class:`_LayerViews`)."""
+
+    def __init__(self, stacked: List[torch.Tensor]):
+        self.like = [(x.shape, x.dtype, x.device) for x in stacked]
+        self.bufs: Optional[List[torch.Tensor]] = None
+
+
+class _LayerViews(torch.autograd.Function):
+    """Row ``r`` of each stacked leaf, as views: one layer's weights.
+
+    The ``n_repeat`` nodes of a forward are chained through ``link`` (an empty
+    tensor), so the backward runs them from the top layer that took a gradient
+    down to layer 0. Each writes its layer's gradients into row ``r`` of one
+    buffer per leaf, allocated by the first to run, and layer 0's hands the
+    whole buffers to the leaves. A plain ``x[r]`` would give each layer a
+    zero-filled stack-sized gradient to add into the leaf's; an ``unbind``
+    would hold every layer's gradient apart until one ``stack`` at the end,
+    which left the allocator freeing and retrying at mamba2-1.3b's size."""
+
+    @staticmethod
+    def forward(ctx, grads: _StackGrads, r: int, link, *stacked):
+        ctx.grads, ctx.r = grads, r
+        ctx.set_materialize_grads(False)
+        link = stacked[0].new_empty(0) if stacked else torch.empty(0)  # a cache may have no leaf
+        return (link,) + tuple(x[r] for x in stacked)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, _link_grad, *layer_grads):
+        grads, r = ctx.grads, ctx.r
+        if grads.bufs is None:
+            grads.bufs = [torch.empty(s, dtype=d, device=dev) for s, d, dev in grads.like]
+            for buf in grads.bufs:
+                buf[r + 1:].zero_()  # the layers above took no gradient
+        for buf, g in zip(grads.bufs, layer_grads):
+            if g is None:
+                buf[r].zero_()
+            else:
+                buf[r].copy_(g)
+        if r != 0:
+            return (None, None, None) + (None,) * len(layer_grads)
+        bufs, grads.bufs = grads.bufs, None
+        return (None, None, None) + tuple(bufs)
+
+
+def layer_views(seg_params, n_repeat: int) -> list:
+    """The ``n_repeat`` per-layer trees of a stacked tree, as views of each
+    leaf's rows (the tree itself when ``n_repeat`` is 1), taken through
+    :class:`_LayerViews`, whose backward fills each leaf's gradient row by
+    row. Without a gradient the views are plain rows (the caches' too)."""
+    if n_repeat == 1:
+        return [seg_params]
+    leaves, treedef = tree_flatten(seg_params)
+    grads, link, out = _StackGrads(leaves), None, []
+    for r in range(n_repeat):
+        link, *views = _LayerViews.apply(grads, r, link, *leaves)
+        out.append(tree_unflatten(treedef, views))
+    return out
+
+
 def _apply_segment(
     cfg: ModelConfig,
     seg: SegmentPlan,
@@ -275,14 +338,12 @@ def _apply_segment(
         def layer(*args):
             return checkpoint(plain, *args, use_reentrant=False)
 
+    layer_params = layer_views(seg_params, seg.n_repeat)
+    layer_caches = ([None] * seg.n_repeat if seg_cache is None
+                    else layer_views(seg_cache, seg.n_repeat))
     new_caches = []
     aux_acc = 0.0
-    for r in range(seg.n_repeat):
-        if seg.n_repeat == 1:
-            params_r, cache_r = seg_params, seg_cache
-        else:
-            params_r = tree_map(lambda x: x[r], seg_params)
-            cache_r = None if seg_cache is None else tree_map(lambda x: x[r], seg_cache)
+    for r, (params_r, cache_r) in enumerate(zip(layer_params, layer_caches)):
         new_cache_r = {}
         aux_r = 0.0
         for pidx, kind in enumerate(seg.kinds):
@@ -322,8 +383,7 @@ def _encode(cfg: ModelConfig, enc_params: dict, audio_embed: torch.Tensor,
         return h + moe_mod.dense_ffn(cfg, p["ffn"], x2)
 
     for seg, seg_params in zip(plan_segments(cfg.encoder_layer_kinds()), enc_params["segments"]):
-        for r in range(seg.n_repeat):
-            params_r = seg_params if seg.n_repeat == 1 else tree_map(lambda x: x[r], seg_params)
+        for params_r in layer_views(seg_params, seg.n_repeat):
             h = enc_layer(h, params_r["pos0"])
     return apply_norm(cfg, enc_params["final_norm"], h)
 

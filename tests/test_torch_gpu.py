@@ -18,7 +18,9 @@ and topk_mask_ef once a round and nothing else. The SSD
 scan, flash attention and flash decode: y within one bf16 ulp of the plain
 version (f32: 1e-5·max|y|). RMSNorm: bf16 within one bf16 ulp, f32 within
 2e-6·|y|. Flash decode and RMSNorm also give the same bits on two launches,
-and raise rather than fall back when their kernel cannot be built.
+and raise rather than fall back when their kernel cannot be built. The
+stacked-layer backward at photon-1.3b's widths fills no stack-sized tensor
+and peaks no higher than per-layer slicing of the stack.
 """
 import numpy as np
 import pytest
@@ -1072,3 +1074,81 @@ def test_cuda_host_dryrun_cli_measures_a_serve_step(tmp_path, monkeypatch, capsy
     with open(tmp_path / "mamba2-1.3b__long_500k__host.json") as f:
         r = json.load(f)
     assert r["peak_memory_per_device"] > 0 and r["measured"]["kernels_not_counted"] == {}
+
+
+# ---------------------------------------------------------------------------
+# The stacked-layer backward
+# ---------------------------------------------------------------------------
+
+
+def _stacked_backward(model, params, tokens, stack_shapes):
+    """One forward and backward of ``model.loss`` from a reset peak: the peak
+    bytes allocated above the params, the device ms (median of five), and the
+    count of ``fill_`` calls on a tensor of a stacked leaf's shape in one
+    more, profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(params)
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+
+    def once():
+        loss, _ = model.loss(tree_unflatten(treedef, leaves), {"tokens": tokens})
+        torch.autograd.grad(loss, leaves)
+
+    once()  # warm the allocator and the kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    once()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        once()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        once()
+        torch.cuda.synchronize()
+    fills = sum(e.name == "aten::fill_" and tuple(e.input_shapes[0]) in stack_shapes
+                for e in prof.events())
+    return peak, sorted(times)[2], fills
+
+
+def test_cuda_stacked_backward_fills_no_stack_and_holds_no_more_memory(monkeypatch, capsys):
+    """photon-1.3b's widths at 4 layers (one body repeated 4 times), B 1 × S
+    2048: the backward through ``layer_views`` fills no stack-sized tensor,
+    and its peak allocation is at most that of per-layer ``x[r]`` slicing,
+    which fills one stack-sized zero gradient per leaf and layer."""
+    _need_cuda()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+    from repro_torch.tree import tree_flatten, tree_map
+
+    cfg = dataclasses.replace(get_config("photon-1.3b"), n_layers=4)
+    (seg,) = transformer.plan_segments(cfg.layer_kinds())
+    assert seg.n_repeat == 4
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    stack_shapes = {tuple(x.shape) for x in tree_flatten(params["segments"][0])[0]}
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen).cuda()
+
+    peak, ms, fills = _stacked_backward(model, params, tokens, stack_shapes)
+    monkeypatch.setattr(transformer, "layer_views", lambda tree, n: (
+        [tree] if n == 1 else [tree_map(lambda x: x[r], tree) for r in range(n)]))
+    peak_s, ms_s, fills_s = _stacked_backward(model, params, tokens, stack_shapes)
+    with capsys.disabled():
+        print(f"\nstacked backward, photon-1.3b widths, 4 layers, 1x2048: layer_views peak "
+              f"{peak} B, {ms:.3f} ms, {fills} stack-sized fill_; x[r] peak {peak_s} B, "
+              f"{ms_s:.3f} ms, {fills_s} stack-sized fill_")
+    assert fills == 0
+    assert fills_s >= len(stack_shapes)
+    assert peak <= peak_s, (peak, peak_s)
