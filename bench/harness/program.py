@@ -8,16 +8,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-#: fields of the program's ModelConfig a configuration file may state
-_CONFIG_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab_size",
-                  "pos_embedding", "norm", "activation", "tie_embeddings", "z_loss",
-                  "param_dtype", "compute_dtype", "ssm_state", "ssm_head_dim", "ssm_expand",
-                  "ssm_conv_width", "ssm_n_groups")
+#: fields of the program's ModelConfig that name a model rather than describe
+#: it; every other field the configuration file states is compared
+_IDENTITY = ("name", "family", "source")
 
 
 def nest(flat: Dict[str, torch.Tensor]):
@@ -39,10 +37,49 @@ def _lists(node):
     return {k: _lists(v) for k, v in node.items()}
 
 
+def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The program's nested dicts and lists to dotted names."""
+    if not isinstance(tree, (dict, list)):
+        return {prefix[:-1]: tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    return {n: leaf for k, v in items for n, leaf in flatten(v, f"{prefix}{k}.").items()}
+
+
 def get(tree, name: str) -> torch.Tensor:
     for k in name.split("."):
         tree = tree[int(k)] if isinstance(tree, list) else tree[k]
     return tree
+
+
+def stated(config: dict) -> List[str]:
+    """The fields of the program's ModelConfig that the configuration file
+    states, the fields that name a model left out."""
+    from repro_torch.configs.base import ModelConfig
+
+    return [f.name for f in dataclasses.fields(ModelConfig)
+            if f.name in config and f.name not in _IDENTITY]
+
+
+def build(config: dict, seq_len: int, shapes: Dict[str, Tuple[int, ...]]):
+    """The program's model of the configuration file: refused where the
+    program's ModelConfig departs from a field that the file states, or where
+    its parameter tree is not ``shapes`` (the benchmark's layout), leaf for
+    leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(config["arch"])
+    wrong = {k: (getattr(cfg, k), config[k]) for k in stated(config)
+             if getattr(cfg, k) != config[k]}
+    if wrong:
+        raise SystemExit(f"the program's {cfg.name} departs from the configuration file "
+                         f"(program, file): {wrong}")
+    cfg = dataclasses.replace(cfg, max_seq_len=max(cfg.max_seq_len, seq_len))
+    model = build_model(cfg)
+    got = {n: tuple(t.shape) for n, t in flatten(model.abstract_params()).items()}
+    if got != shapes:
+        raise SystemExit(f"the program's parameter layout differs: {got} != {shapes}")
+    return model
 
 
 class Program:
@@ -50,31 +87,18 @@ class Program:
 
     def __init__(self, config: dict, traffic: dict, workload: dict, params: Dict[str, torch.Tensor],
                  seed: int, tracer=None):
-        from repro_torch.configs import get_config
         from repro_torch.core.aggregator import SyncAggregator
         from repro_torch.core.compression import get_codec
         from repro_torch.core.federated import FederatedConfig, prng_key
         from repro_torch.core.inner_opt import InnerOptConfig
         from repro_torch.core.outer_opt import OuterOptConfig
         from repro_torch.core.sampler import STRAGGLER_PROFILES, ParticipationConfig
-        from repro_torch.models.model import build_model
 
         if traffic["aggregation"] != "sync":
             raise SystemExit(f"aggregation {traffic['aggregation']!r}: the harness drives "
                              "SyncAggregator rounds only")
-        cfg = get_config(config["arch"])
-        wrong = {k: (getattr(cfg, k), config[k]) for k in _CONFIG_FIELDS
-                 if k in config and getattr(cfg, k) != config[k]}
-        if wrong:
-            raise SystemExit(f"the program's {cfg.name} departs from the configuration file "
-                             f"(program, file): {wrong}")
-        cfg = dataclasses.replace(cfg, max_seq_len=max(cfg.max_seq_len, traffic["seq_len"]))
-        self.model = build_model(cfg)
-        want = {n: tuple(t.shape) for n, t in params.items()}
-        abstract = self.model.abstract_params()
-        shapes = {n: tuple(get(abstract, n).shape) for n in want}
-        if shapes != want:
-            raise SystemExit(f"the program's parameter layout differs: {shapes} != {want}")
+        self.model = build(config, traffic["seq_len"],
+                           {n: tuple(t.shape) for n, t in params.items()})
         loss_fn = self.model.loss
         if workload["remat"]:
             loss_fn = functools.partial(self.model.loss, remat=True)

@@ -2,9 +2,11 @@
 
 Each round: every cohort client starts from the global weights, takes τ
 local AdamW steps (global-norm clipping, a cosine schedule with linear
-warm-up, decoupled weight decay, the mean loss over its batch), and uploads Δ_c = θ − θ_c, int8-quantised per tensor when the uplink
-says so. The server takes the mean of the Δ_c and applies FedAvg or FedMom
-(with or without Nesterov). Gradients come from autograd over :mod:`reference.model`.
+warm-up, decoupled weight decay, the mean loss over its batch), and uploads
+Δ_c = θ − θ_c, int8-quantised per tensor when the uplink says so. The server
+takes the mean of the Δ_c and applies FedAvg or FedMom (with or without
+Nesterov). Gradients come from autograd over the family's reference model
+(``families/<family>.py``).
 
 :func:`run` follows the first rounds of a run and returns what the benchmark
 compares: each round's loss, each parameter's norm of the first round's
@@ -17,8 +19,8 @@ from typing import Callable, Dict, List
 
 import torch
 
-from reference.layout import BODY
-from reference.model import LOSSES, mm_fp32
+from reference import layout
+from reference.model import mm_fp32
 
 
 def cosine_lr(inner: dict, step: int) -> float:
@@ -45,14 +47,15 @@ def leaf_norm(x: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(x))
 
 
-def value_and_grad(cfg: dict, loss_fn, theta: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                   mm, grads: Dict[str, torch.Tensor]) -> float:
+def value_and_grad(cfg: dict, theta: Dict[str, torch.Tensor], tokens: torch.Tensor, mm,
+                   grads: Dict[str, torch.Tensor]) -> float:
     """Mean loss of ``tokens`` (b, S), one sequence per backward pass (the
     float32 activations of one 2048-token photon-1.3b sequence take ~15 GB);
     the mean gradient is written into ``grads``. Every sequence has S - 1
     labels, so the mean of the sequences' losses is the batch's. Each layer
-    of a stacked parameter is its own autograd leaf, so no layer's backward
-    touches the others."""
+    of a stacked parameter (``layout.Leaf.stacked``) is its own autograd leaf,
+    so no layer's backward touches the others."""
+    loss_fn, stacks = layout.family(cfg).loss, layout.stacked(cfg)
     n_seq = tokens.shape[0]
     for g in grads.values():
         g.zero_()
@@ -60,7 +63,7 @@ def value_and_grad(cfg: dict, loss_fn, theta: Dict[str, torch.Tensor], tokens: t
     for i in range(n_seq):
         w, flat = {}, []
         for name, t in theta.items():
-            if name.startswith(BODY):
+            if name in stacks:
                 w[name] = [t[l].detach().requires_grad_(True) for l in range(t.shape[0])]
                 flat += [(name, l, x) for l, x in enumerate(w[name])]
             else:
@@ -109,7 +112,6 @@ def run(cfg: dict, traffic: dict, theta: Dict[str, torch.Tensor], rounds: List[t
 
 
 def _run(cfg, traffic, theta, rounds, theta0_leaf, mm, keep_pg) -> dict:
-    loss_fn = LOSSES[cfg["family"]]
     inner, outer = traffic["inner"], traffic["outer"]
     tau, C = traffic["local_steps"], traffic["clients_per_round"]
     mom = ({n: torch.zeros_like(p) for n, p in theta.items()}
@@ -124,7 +126,7 @@ def _run(cfg, traffic, theta, rounds, theta0_leaf, mm, keep_pg) -> dict:
             v = {n: torch.zeros_like(p) for n, p in theta.items()}
             grads = {n: torch.zeros_like(p) for n, p in theta.items()}
             for t in range(tau):
-                losses.append(value_and_grad(cfg, loss_fn, th, tokens[t, c], mm, grads))
+                losses.append(value_and_grad(cfg, th, tokens[t, c], mm, grads))
                 gn = adamw_step(inner, th, grads, m, v, t + 1, cosine_lr(inner, r * tau + t))
             last_gn.append(gn)
             del m, v, grads

@@ -2,21 +2,62 @@
 
 Every parameter is named by its dotted path in the measured program's
 parameter tree (``segments.0.pos0.mixer.wq``; a number is a list index), and
-layers of one kind are stacked on a leading axis of ``n_layers``. Names,
+layers of one kind are stacked on a leading axis of their count. Names,
 shapes and initial values come from the configuration file alone, so the
 benchmark hands the same weights to the program and to the plain reference.
+
+A family is one module, ``families/<family>.py``, found by the configuration
+file's ``family`` string; no file here names one. It gives:
+
+- ``leaves(cfg) -> List[Leaf]``: every parameter (the order does not matter);
+- ``loss(cfg, w, tokens, mm) -> (loss, ce)``: the plain reference model, every
+  matrix product through ``mm`` (:mod:`reference.model`);
+- ``flops_per_token(cfg, seq_len) -> int``: the model FLOPs of one token's
+  forward and backward pass (:mod:`reference.flops`);
+- ``TINY``: ``{"config": ..., "traffic": ..., "workload": ...}``, the keys its
+  cells change for the CPU tests;
+- optionally ``INITS``: further init kinds, ``name -> f(shape, scale,
+  generator, device)`` returning float32 values.
 """
 from __future__ import annotations
 
+import functools
+import importlib.util
 import math
-from typing import Dict, List, Tuple
+from pathlib import Path
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-#: (name, shape, init, scale); init is normal | zeros | ones | ssm_a | ssm_dt
-Leaf = Tuple[str, Tuple[int, ...], str, float]
+FAMILIES = Path(__file__).resolve().parent / "families"
 
-BODY = "segments.0.pos0."
+
+class Leaf(NamedTuple):
+    name: str
+    shape: Tuple[int, ...]
+    #: normal | zeros | ones | ssm_a | ssm_dt, or one of the family's ``INITS``
+    init: str
+    scale: float
+    #: a per-layer stack: its leading axis is the layer
+    stacked: bool = False
+    #: the axis of padded vocabulary rows (the embedding, an untied head)
+    vocab_axis: Optional[int] = None
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str):
+    path = FAMILIES / f"{name}.py"
+    if path.parent != FAMILIES or not path.is_file():
+        raise ValueError(f"unknown family {name!r}: no reference/families/{name}.py")
+    spec = importlib.util.spec_from_file_location("bench_family_" + name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family(cfg: dict):
+    """The module of the configuration's family."""
+    return _load(cfg["family"])
 
 
 def padded_vocab(cfg: dict) -> int:
@@ -24,48 +65,31 @@ def padded_vocab(cfg: dict) -> int:
     return (cfg["vocab_size"] + m - 1) // m * m
 
 
+def layer_groups(signatures: Sequence) -> List[Tuple[str, List[int]]]:
+    """The program's grouping of layers into parameter stacks, restated from
+    ``transformer.plan_segments``: up to three leading layers of their own,
+    then the shortest period (at most 12) whose layers repeat the same
+    signatures to the end. Returns ``(prefix, layers)`` per position, in
+    order; a position holding more than one layer is a stack."""
+    n = len(signatures)
+    for r in range(min(3, n) + 1):
+        m = n - r
+        for p in range(1, min(m, 12) + 1):
+            if m % p == 0 and all(signatures[r + i] == signatures[r + i % p] for i in range(m)):
+                groups = [(f"segments.{i}.pos0.", [i]) for i in range(r)]
+                return groups + [(f"segments.{r}.pos{q}.", list(range(r + q, n, p)))
+                                 for q in range(p)]
+    return [(f"segments.{i}.pos0.", [i]) for i in range(n)]
+
+
 def leaves(cfg: dict) -> List[Leaf]:
     """Every parameter of the configuration, sorted by name."""
-    d, L, std = cfg["d_model"], cfg["n_layers"], cfg["init_std"]
-    out_std = std / math.sqrt(2 * L)
-    out: List[Leaf] = [("embed", (padded_vocab(cfg), d), "normal", std)]
-    if cfg["family"] == "photon":
-        h, hd, ff = cfg["n_heads"], d // cfg["n_heads"], cfg["d_ff"]
-        out += [
-            ("final_norm.scale", (d,), "ones", 0.0),
-            ("final_norm.bias", (d,), "zeros", 0.0),
-        ]
-        for norm in ("norm1", "norm2"):
-            out += [(BODY + norm + ".scale", (L, d), "ones", 0.0),
-                    (BODY + norm + ".bias", (L, d), "zeros", 0.0)]
-        out += [
-            (BODY + "mixer.wq", (L, d, h, hd), "normal", std),
-            (BODY + "mixer.wk", (L, d, h, hd), "normal", std),
-            (BODY + "mixer.wv", (L, d, h, hd), "normal", std),
-            (BODY + "mixer.wo", (L, h, hd, d), "normal", out_std),
-            (BODY + "ffn.w_in", (L, d, ff), "normal", std),
-            (BODY + "ffn.w_out", (L, ff, d), "normal", out_std),
-        ]
-    elif cfg["family"] == "mamba2":
-        di = cfg["ssm_expand"] * d
-        g, ds = cfg["ssm_n_groups"], cfg["ssm_state"]
-        nh = di // cfg["ssm_head_dim"]
-        conv = di + 2 * g * ds
-        out += [
-            ("final_norm.scale", (d,), "ones", 0.0),
-            (BODY + "norm1.scale", (L, d), "ones", 0.0),
-            (BODY + "mixer.in_proj", (L, d, 2 * di + 2 * g * ds + nh), "normal", std),
-            (BODY + "mixer.conv_w", (L, cfg["ssm_conv_width"], conv), "normal", 0.2),
-            (BODY + "mixer.conv_b", (L, conv), "zeros", 0.0),
-            (BODY + "mixer.A_log", (L, nh), "ssm_a", 0.0),
-            (BODY + "mixer.dt_bias", (L, nh), "ssm_dt", 0.0),
-            (BODY + "mixer.D_skip", (L, nh), "ones", 0.0),
-            (BODY + "mixer.norm_scale", (L, di), "ones", 0.0),
-            (BODY + "mixer.out_proj", (L, di, d), "normal", out_std),
-        ]
-    else:
-        raise ValueError(f"unknown family {cfg['family']!r}")
-    return sorted(out)
+    return sorted(Leaf(*leaf) for leaf in family(cfg).leaves(cfg))
+
+
+def stacked(cfg: dict) -> set:
+    """The names of the per-layer stacks."""
+    return {leaf.name for leaf in leaves(cfg) if leaf.stacked}
 
 
 def leaf_seed(seed: int, index: int) -> int:
@@ -77,8 +101,8 @@ def make_leaf(cfg: dict, seed: int, name: str, device) -> torch.Tensor:
     """One leaf's initial float32 values, drawn on ``device`` in one call from
     its own generator: the same ``(seed, name)`` gives the same bits."""
     table = leaves(cfg)
-    index = [n for n, *_ in table].index(name)
-    _, shape, init, scale = table[index]
+    index = [leaf.name for leaf in table].index(name)
+    _, shape, init, scale, _, _ = table[index]
     if init == "zeros":
         return torch.zeros(shape, dtype=torch.float32, device=device)
     if init == "ones":
@@ -86,6 +110,9 @@ def make_leaf(cfg: dict, seed: int, name: str, device) -> torch.Tensor:
     gen = torch.Generator(device=device).manual_seed(leaf_seed(seed, index))
     if init == "normal":
         return torch.randn(shape, generator=gen, dtype=torch.float32, device=device).mul_(scale)
+    extra = getattr(family(cfg), "INITS", {})
+    if init in extra:
+        return extra[init](shape, scale, gen, device)
     u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
     if init == "ssm_a":  # A_log = log(U[1, 16])
         return torch.log1p(u.mul_(15.0))
@@ -97,13 +124,17 @@ def make_leaf(cfg: dict, seed: int, name: str, device) -> torch.Tensor:
 
 def make_params(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     """Every leaf, by name."""
-    return {name: make_leaf(cfg, seed, name, device) for name, *_ in leaves(cfg)}
+    return {leaf.name: make_leaf(cfg, seed, leaf.name, device) for leaf in leaves(cfg)}
 
 
 def n_params(cfg: dict, padded: bool = False) -> int:
-    """Parameters of the model; the embedding's padding rows only if asked
-    (the tied embedding is counted once: it is also the output head)."""
-    total = sum(math.prod(shape) for _, shape, _, _ in leaves(cfg))
-    if not padded:
-        total -= (padded_vocab(cfg) - cfg["vocab_size"]) * cfg["d_model"]
+    """Parameters of the model; the padding rows of the vocabulary-sized
+    leaves only if asked (a tied embedding is counted once, though it is also
+    the output head)."""
+    total = 0
+    for leaf in leaves(cfg):
+        size = math.prod(leaf.shape)
+        if leaf.vocab_axis is not None and not padded:
+            size -= size // leaf.shape[leaf.vocab_axis] * (padded_vocab(cfg) - cfg["vocab_size"])
+        total += size
     return total

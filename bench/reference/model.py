@@ -1,19 +1,12 @@
-"""The plain reference models: the loss of one micro-batch in float32.
+"""The plain reference models' shared parts, in float32.
 
 Written from the published descriptions in plain torch operations, with no
-kernel, cache or batching of the measured program:
-
-- ``photon``: an MPT-style decoder (Photon, arXiv:2405.10853, Table 2):
-  pre-norm LayerNorm blocks, multi-head causal attention with ALiBi
-  (Press et al. 2022), a GELU MLP of width ``d_ff``, a final LayerNorm and
-  the tied embedding as the output head.
-- ``mamba2``: the Mamba-2 SSD stack (arXiv:2405.21060): RMSNorm, the joint
-  input projection, a causal depthwise convolution, SiLU, the SSD scan in the
-  paper's minimal chunked form (``ssd`` below, its Listing 1), the skip ``D``,
-  the gated RMSNorm and the output projection.
-
-The loss is next-token cross-entropy over every position but the last, plus
-``z_loss`` times the mean squared log-sum-exp.
+kernel, cache or batching of the measured program. Each family's model is its
+own module, ``families/<family>.py`` (found by :func:`reference.layout.family`),
+built from the parts here: the norms, ALiBi's slopes, the SSD scan of Mamba-2
+in the paper's minimal chunked form (arXiv:2405.21060, Listing 1) and the
+loss of a tied head, which is next-token cross-entropy over every position
+but the last, plus ``z_loss`` times the mean squared log-sum-exp.
 
 Every matrix product goes through ``mm`` (``a @ b`` with broadcasting), so
 the same code runs in float32 (:func:`mm_fp32`), as the control that must
@@ -29,9 +22,6 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
-
-from reference.layout import BODY
 
 F8_FWD, F8_BWD = torch.float8_e4m3fn, torch.float8_e5m2
 
@@ -116,31 +106,6 @@ def _lm_loss(cfg, w, h, tokens, mm):
     return ce + cfg["z_loss"] * (lse * lse).mean(), ce
 
 
-def photon_loss(cfg: dict, w: dict, tokens: torch.Tensor, mm=mm_fp32):
-    """``(loss, ce)`` of tokens (b, S)."""
-    b, S = tokens.shape
-    d, H = cfg["d_model"], cfg["n_heads"]
-    hd, eps = d // H, cfg["norm_eps"]
-    pos = torch.arange(S, device=tokens.device)
-    dist = (pos[:, None] - pos[None, :]).float()
-    slopes = torch.tensor(alibi_slopes(H), device=tokens.device)
-    bias = -slopes[:, None, None] * dist  # (H, S, S)
-    bias = bias.masked_fill(dist < 0, -math.inf)
-    h = w["embed"][tokens]
-    for l in range(cfg["n_layers"]):
-        p = lambda name: w[BODY + name][l]  # noqa: E731
-        x = _layernorm(h, p("norm1.scale"), p("norm1.bias"), eps)
-        q, k, v = (mm(x, p(f"mixer.{n}").reshape(d, H * hd)).view(b, S, H, hd).transpose(1, 2)
-                   for n in ("wq", "wk", "wv"))
-        att = torch.softmax(mm(q, k.transpose(-1, -2)) / math.sqrt(hd) + bias, dim=-1)
-        o = mm(att, v).transpose(1, 2).reshape(b, S, H * hd)
-        h = h + mm(o, p("mixer.wo").reshape(H * hd, d))
-        x = _layernorm(h, p("norm2.scale"), p("norm2.bias"), eps)
-        h = h + mm(_gelu_tanh(mm(x, p("ffn.w_in"))), p("ffn.w_out"))
-    h = _layernorm(h, w["final_norm.scale"], w["final_norm.bias"], eps)
-    return _lm_loss(cfg, w, h, tokens, mm)
-
-
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """x (..., T) -> (..., T, T): sum of x over (j, i] below the diagonal,
     -inf above it."""
@@ -172,41 +137,3 @@ def ssd(X, A, B, C, block: int):
 
 
 SSD_BLOCK = 128
-
-
-def mamba2_loss(cfg: dict, w: dict, tokens: torch.Tensor, mm=mm_fp32):
-    """``(loss, ce)`` of tokens (b, S). Each layer's internals are recomputed
-    in the backward pass (``torch.utils.checkpoint``): the SSD scan's float32
-    intermediates of 48 layers would not fit beside the optimiser state."""
-    b, S = tokens.shape
-    d, eps = cfg["d_model"], cfg["norm_eps"]
-    di = cfg["ssm_expand"] * d
-    g, n, pdim = cfg["ssm_n_groups"], cfg["ssm_state"], cfg["ssm_head_dim"]
-    nh, W = di // pdim, cfg["ssm_conv_width"]
-
-    def layer(h, l):
-        p = lambda name: w[BODY + name][l]  # noqa: E731
-        x = _rmsnorm(h, p("norm1.scale"), eps)
-        z, xbc, dt = torch.split(mm(x, p("mixer.in_proj")), [di, di + 2 * g * n, nh], dim=-1)
-        xp = F.pad(xbc, (0, 0, W - 1, 0))  # causal: W-1 zeros before the sequence
-        cw = p("mixer.conv_w")
-        xbc = F.silu(sum(xp[:, i:i + S] * cw[i] for i in range(W)) + p("mixer.conv_b"))
-        xs, Bm, Cm = torch.split(xbc, [di, g * n, g * n], dim=-1)
-        xs = xs.reshape(b, S, nh, pdim)
-        Bm = Bm.reshape(b, S, g, n).repeat_interleave(nh // g, dim=2)
-        Cm = Cm.reshape(b, S, g, n).repeat_interleave(nh // g, dim=2)
-        dt = F.softplus(dt + p("mixer.dt_bias"))  # (b, S, nh)
-        A = -torch.exp(p("mixer.A_log"))
-        y = ssd(xs * dt[..., None], A * dt, Bm, Cm, SSD_BLOCK)
-        y = (y + xs * p("mixer.D_skip")[:, None]).reshape(b, S, di)
-        y = _rmsnorm(y * F.silu(z), p("mixer.norm_scale"), eps)
-        return h + mm(y, p("mixer.out_proj"))
-
-    h = w["embed"][tokens]
-    for l in range(cfg["n_layers"]):
-        h = checkpoint(layer, h, l, use_reentrant=False)
-    h = _rmsnorm(h, w["final_norm.scale"], eps)
-    return _lm_loss(cfg, w, h, tokens, mm)
-
-
-LOSSES = {"photon": photon_loss, "mamba2": mamba2_loss}

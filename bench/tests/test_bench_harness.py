@@ -14,7 +14,7 @@ import time
 import pytest
 import torch
 
-from conftest import BENCH, ROOT
+from conftest import BENCH, CONFIGS, ROOT
 from harness import judge, runner, spec
 from harness.calibrate import half_batch_feed
 from reference.model import mm_fp8
@@ -141,17 +141,17 @@ def _run(cell, feed=None, seconds=0.0):
                       log=lambda m: None, feed=feed)
 
 
-@pytest.mark.parametrize("family", ["photon", "mamba2"])
-def test_a_sound_tiny_run_is_correct_and_prints_the_result_keys(tiny_cell, family):
-    res = _run(tiny_cell(family))
+@pytest.mark.parametrize("config", CONFIGS)
+def test_a_sound_tiny_run_is_correct_and_prints_the_result_keys(tiny_cell, config):
+    res = _run(tiny_cell(config))
     assert res["correct"] is True and res["failed"] == 0 and res["attempted"] == 3
     assert list(res) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
     assert set(res["metrics"]) == {m["name"] for m in SPEC["end_to_end"]}
     assert all(c["value"] <= c["limit"] for c in res["checks"].values())
 
 
-@pytest.mark.parametrize("family", ["photon", "mamba2"])
-def test_a_step_that_returns_its_state_unchanged_is_not_correct(tiny_cell, family, monkeypatch):
+@pytest.mark.parametrize("config", CONFIGS)
+def test_a_step_that_returns_its_state_unchanged_is_not_correct(tiny_cell, config, monkeypatch):
     from repro_torch.core.aggregator import SyncAggregator
 
     plain = SyncAggregator.run_round
@@ -163,20 +163,20 @@ def test_a_step_that_returns_its_state_unchanged_is_not_correct(tiny_cell, famil
         return metrics
 
     monkeypatch.setattr(SyncAggregator, "run_round", unchanged)
-    res = _run(tiny_cell(family))
+    res = _run(tiny_cell(config))
     assert res["correct"] is False
     assert res["checks"]["change_gap"]["value"] == pytest.approx(1.0)
 
 
-@pytest.mark.parametrize("family", ["photon", "mamba2"])
-def test_half_the_batch_left_out_is_not_correct(tiny_cell, family):
-    res = _run(tiny_cell(family), feed=half_batch_feed)
+@pytest.mark.parametrize("config", CONFIGS)
+def test_half_the_batch_left_out_is_not_correct(tiny_cell, config):
+    res = _run(tiny_cell(config), feed=half_batch_feed)
     assert res["correct"] is False
 
 
-@pytest.mark.parametrize("family", ["photon", "mamba2"])
-def test_the_fp8_control_in_the_programs_place_is_not_correct(tiny_cell, family):
-    cell = tiny_cell(family)
+@pytest.mark.parametrize("config", CONFIGS)
+def test_the_fp8_control_in_the_programs_place_is_not_correct(tiny_cell, config):
+    cell = tiny_cell(config)
     dev = torch.device("cpu")
     seed = 2**31 + 3
     from harness.calibrate import program_readings
@@ -195,7 +195,7 @@ def test_bf16_products_alone_move_pg_dist_far_more_than_the_float32_programs_gap
     of times as much."""
     from harness.calibrate import program_readings, witness_rows
 
-    cell = tiny_cell("mamba2")
+    cell = tiny_cell("mamba2-1.3b")
     dev = torch.device("cpu")
     seed = 2**31 + 5
     prog, rounds = program_readings(cell, seed, dev)

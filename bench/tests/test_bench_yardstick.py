@@ -39,7 +39,7 @@ def test_parameter_counts_are_the_ports(name, n, n_padded, np_):
 
     cfg = _config(name)
     port = build_model(name).abstract_params()
-    assert sum(get(port, leaf).numel() for leaf, *_ in layout.leaves(cfg)) == n_padded
+    assert sum(get(port, leaf.name).numel() for leaf in layout.leaves(cfg)) == n_padded
     assert layout.n_params(cfg, padded=True) == n_padded
     assert layout.n_params(cfg) == n
     assert ybytes.model_flat_len(cfg) == np_
@@ -56,7 +56,7 @@ def test_layout_is_the_ports_tree_leaf_for_leaf(name):
 
     port = {dotted(p): tuple(t.shape)
             for p, t in flatten_with_paths(build_model(name).abstract_params())}
-    assert port == {n: shape for n, shape, _, _ in layout.leaves(cfg)}
+    assert port == {leaf.name: leaf.shape for leaf in layout.leaves(cfg)}
 
 
 def test_train_flops_are_six_n_t_plus_causal_attention():
