@@ -8,13 +8,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-#: fields of the program's ModelConfig that name a model rather than describe
-#: it; every other field the configuration file states is compared
+#: fields of the program's config class that name a model rather than
+#: describe it; :func:`stated` says which of the others are compared
 _IDENTITY = ("name", "family", "source")
 
 
@@ -51,26 +52,41 @@ def get(tree, name: str) -> torch.Tensor:
     return tree
 
 
-def stated(config: dict) -> List[str]:
-    """The fields of the program's ModelConfig that the configuration file
-    states, the fields that name a model left out."""
+def as_json(value):
+    """A config value in the form its JSON file writes it: a tuple as a list,
+    a dataclass as a dict."""
+    return json.loads(json.dumps(value, default=dataclasses.asdict))
+
+
+def stated(config: dict, cfg) -> List[str]:
+    """The fields of ``cfg``, the program's config object, that are held to
+    the configuration file: every dataclass field of its own class, the
+    fields that name a model left out. A field of the base ModelConfig counts
+    where the file states it; one that only the program's own class adds
+    always counts."""
     from repro_torch.configs.base import ModelConfig
 
-    return [f.name for f in dataclasses.fields(ModelConfig)
-            if f.name in config and f.name not in _IDENTITY]
+    base = {f.name for f in dataclasses.fields(ModelConfig)}
+    return [f.name for f in dataclasses.fields(cfg)
+            if f.name not in _IDENTITY and (f.name in config or f.name not in base)]
 
 
 def build(config: dict, seq_len: int, shapes: Dict[str, Tuple[int, ...]]):
     """The program's model of the configuration file: refused where the
-    program's ModelConfig departs from a field that the file states, or where
-    its parameter tree is not ``shapes`` (the benchmark's layout), leaf for
-    leaf."""
+    program's config object departs from a field that :func:`stated` holds to
+    the file (compared in JSON form), or where its parameter tree is not
+    ``shapes`` (the benchmark's layout), leaf for leaf."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
     cfg = get_config(config["arch"])
-    wrong = {k: (getattr(cfg, k), config[k]) for k in stated(config)
-             if getattr(cfg, k) != config[k]}
+    fields = stated(config, cfg)
+    missing = [k for k in fields if k not in config]
+    if missing:
+        raise SystemExit(f"the configuration file does not state {missing}, fields of the "
+                         f"program's {type(cfg).__name__} for {cfg.name}")
+    wrong = {k: (getattr(cfg, k), config[k]) for k in fields
+             if as_json(getattr(cfg, k)) != as_json(config[k])}
     if wrong:
         raise SystemExit(f"the program's {cfg.name} departs from the configuration file "
                          f"(program, file): {wrong}")

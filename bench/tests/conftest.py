@@ -36,10 +36,20 @@ def tiny(cell):
         workload=dict(cell.workload, **cut["workload"], limits=dict(TINY_LIMITS)))
 
 
+def as_field(template, value):
+    """A configuration file's value in the form of the program's field
+    ``template``: lists as tuples where the field holds a tuple."""
+    def tuples(v):
+        return tuple(map(tuples, v)) if isinstance(v, list) else v
+    return tuples(value) if isinstance(template, tuple) else value
+
+
 @pytest.fixture
 def tiny_cell(monkeypatch):
     """``make(config)``: that configuration's tiny cell, with the program's
-    registry patched to the same numbers."""
+    registry patched to the same numbers: every field of the program's config
+    class that ``harness.program.stated`` holds to the file takes the cut
+    file's value."""
     import repro_torch.configs as configs
     from harness import spec
     from harness.program import stated
@@ -47,8 +57,9 @@ def tiny_cell(monkeypatch):
     def make(config: str):
         cell = tiny(spec.load_cell(CELLS[config]))
         cfg = cell.config
-        port = dataclasses.replace(configs.get_config(cfg["arch"]),
-                                   **{k: cfg[k] for k in stated(cfg)})
+        port = configs.get_config(cfg["arch"])
+        port = dataclasses.replace(port, **{k: as_field(getattr(port, k), cfg[k])
+                                            for k in stated(cfg, port) if k in cfg})
         monkeypatch.setattr(configs, "get_config", lambda name: port)
         return cell
 

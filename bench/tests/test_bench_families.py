@@ -1,25 +1,25 @@
 """The reference side found by family: every number the benchmark reads is
-what it was before the families moved into ``reference/families/``
-(``yardstick_readings.json``, read before the move), a family of another
-architecture joins as new files alone, and the program's configuration is
-held to every field that a configuration file states."""
+what the configuration's own file of pinned readings holds
+(``readings/<config>.json``, from ``readings.py``), a family of another
+architecture and a configuration of a new family join as new files alone,
+and the program's configuration is held to every field that its config class
+holds to a configuration file."""
+import dataclasses
 import json
 import os
 import shutil
 import subprocess
 import sys
 from pathlib import Path
+from typing import Tuple
 
 import pytest
-import torch
 
-from conftest import BENCH, CELLS, CONFIGS, ROOT, SPEC, tiny
-from harness import runner, spec
+import readings
+from conftest import BENCH, CELLS, CONFIGS, ROOT, SPEC
+from harness import spec
 from harness.program import build
-from harness.traffic import Traffic
-from reference import bytes as ybytes, flops, layout
-
-READINGS = spec.load_json(BENCH / "tests" / "yardstick_readings.json")
+from reference import layout
 
 
 def _config(name):
@@ -28,41 +28,28 @@ def _config(name):
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_the_yardstick_reads_what_it_read_before_the_families_moved(name):
-    want = READINGS[name]
-    cell = spec.load_cell(CELLS[name])
-    cfg, traffic = cell.config, cell.traffic
-    assert [[leaf.name, list(leaf.shape), leaf.init, leaf.scale]
-            for leaf in layout.leaves(cfg)] == want["leaves"]
-    assert layout.n_params(cfg) == want["n_params"]
-    assert layout.n_params(cfg, padded=True) == want["n_params_padded"]
-    np_ = ybytes.model_flat_len(cfg)
-    assert np_ == want["model_flat_len"]
-    tokens = Traffic(traffic, cfg["vocab_size"], 0, "cpu").tokens_per_round()
-    assert tokens == want["round_tokens"]
-    assert flops.train_flops(cfg, tokens, traffic["seq_len"]) == want["train_flops"]
-    k = traffic["clients_per_round"]
-    assert ybytes.server_apply_bytes(np_, k, traffic["outer"]["name"]) == want["server_apply_bytes"]
-    assert ybytes.int8_codec_bytes(np_, k) == want["int8_codec_bytes"]
-
-
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    want = {k: v for k, v in readings.load(name).items() if k != "tiny"}
+    got = readings.yardstick(name)
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key] == want[key], key
 
 
 @pytest.mark.parametrize("name", CONFIGS)
-def test_the_tiny_cells_reference_reads_the_same_bits(name, one_thread):
-    want = READINGS[name]["tiny"]
-    cell = tiny(spec.load_cell(CELLS[name]))
-    dev = torch.device("cpu")
-    gen = Traffic(cell.traffic, cell.config["vocab_size"], want["seed"], dev)
-    rounds = [gen.round_tokens(r) for r in range(cell.workload["probe_rounds"])]
-    ref = runner.follow(cell, want["seed"], rounds, dev)
-    for key in ("loss", "client_grad_norm", "pg_norms", "change_norms"):
-        assert ref[key] == want[key], key
+def test_the_tiny_cells_reference_reads_the_same_bits(name):
+    want = readings.load(name)["tiny"]
+    got = readings.reference(name, want["seed"])
+    for key in readings.REFERENCE_KEYS:
+        assert got[key] == want[key], key
+
+
+def test_a_configuration_without_pinned_readings_names_the_file_and_its_writer(monkeypatch,
+                                                                              tmp_path):
+    monkeypatch.setattr(readings, "DIR", tmp_path)
+    with pytest.raises(FileNotFoundError) as err:
+        readings.load(CONFIGS[0])
+    assert str(tmp_path / f"{CONFIGS[0]}.json") in str(err.value)
+    assert f"python3 bench/tests/readings.py --config {CONFIGS[0]}" in str(err.value)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -74,6 +61,63 @@ def test_a_configuration_file_unlike_the_program_is_refused_by_field(name, field
     build(cell.config, cell.traffic["seq_len"], shapes)  # the file as committed passes
     with pytest.raises(SystemExit, match=field):
         build(dict(cell.config, **{field: value}), cell.traffic["seq_len"], shapes)
+
+
+#: two fields that only a program's own config class has, as the file states them
+EXTRA = {"expert_share": [8, 64], "rope_scaling": {"type": "yarn", "factor": 40.0}}
+
+
+@pytest.fixture
+def own_class(monkeypatch):
+    """The program's registry patched to return its configs as a subclass of
+    ModelConfig with :data:`EXTRA`'s fields (a tuple and a dict)."""
+    import repro_torch.configs as configs
+    from repro_torch.configs.base import ModelConfig
+
+    @dataclasses.dataclass(frozen=True)
+    class Extended(ModelConfig):
+        expert_share: Tuple[int, ...] = (8, 64)
+        rope_scaling: dict = dataclasses.field(
+            default_factory=lambda: {"type": "yarn", "factor": 40.0})
+
+    plain = configs.get_config
+    monkeypatch.setattr(configs, "get_config",
+                        lambda name: Extended(**dataclasses.asdict(plain(name))))
+    return Extended
+
+
+@pytest.mark.parametrize("field, value", [("expert_share", [8, 32]),
+                                          ("rope_scaling", {"type": "yarn", "factor": 4.0})])
+def test_a_field_that_only_the_programs_config_class_has_is_held_to_the_file(own_class, field,
+                                                                             value):
+    cell = spec.load_cell(CELLS[CONFIGS[0]])
+    shapes = {leaf.name: leaf.shape for leaf in layout.leaves(cell.config)}
+    seq_len = cell.traffic["seq_len"]
+    build(dict(cell.config, **EXTRA), seq_len, shapes)  # equal in JSON form: passes
+    with pytest.raises(SystemExit, match=field):
+        build(dict(cell.config, **dict(EXTRA, **{field: value})), seq_len, shapes)
+    with pytest.raises(SystemExit, match=f"does not state.*{field}"):
+        build(dict(cell.config, **{k: v for k, v in EXTRA.items() if k != field}), seq_len,
+              shapes)
+
+
+def test_the_tiny_cell_cuts_a_field_of_the_programs_own_class(own_class, tiny_cell, monkeypatch):
+    import repro_torch.configs as configs
+
+    name = CONFIGS[0]
+    family = layout.family(_config(name))
+    monkeypatch.setattr(family, "TINY", dict(
+        family.TINY, config=dict(family.TINY["config"], expert_share=[2, 8])))
+    load = spec.load_cell
+    monkeypatch.setattr(spec, "load_cell", lambda cell: dataclasses.replace(
+        load(cell), config=dict(load(cell).config, **EXTRA)))
+    cell = tiny_cell(name)
+    port = configs.get_config(cell.config["arch"])
+    assert type(port) is own_class and port.expert_share == (2, 8)
+    assert port.rope_scaling == EXTRA["rope_scaling"]
+    assert port.d_model == family.TINY["config"]["d_model"]
+    shapes = {leaf.name: leaf.shape for leaf in layout.leaves(cell.config)}
+    build(cell.config, cell.traffic["seq_len"], shapes)
 
 
 #: a hybrid family as a later change would add it: Mamba-2 and attention
@@ -243,6 +287,51 @@ def test_a_new_family_joins_as_files_and_entries_only(tmp_path):
     assert got["per_token"] == 6 * (got["n_params"] - idle) + 6 * 6 * 64 * 256
     assert got["flops"] == 1000 * got["per_token"]
     assert got["finite"] and 0.0 < got["router"][1] and got["router"][0] <= 0.02
+
+
+def test_a_configuration_of_a_new_family_passes_every_test_over_configs_in_a_copy(tmp_path):
+    """A twin of photon under a new family and name, added to a copy as new
+    files (its family module, configuration, workload and the readings its
+    writer wrote) and entries, passes the copy's own tests of every
+    configuration, and no file that was there changes."""
+    copy, name = tmp_path / "bench", "photon-twin"
+    shutil.copytree(BENCH, copy, ignore=shutil.ignore_patterns("__pycache__"))
+    before = _files(copy)
+    shutil.copy(BENCH / "reference" / "families" / "photon.py",
+                copy / "reference" / "families" / "photon_twin.py")
+    (copy / "configs" / f"{name}.json").write_text(json.dumps(
+        dict(_config("photon-1.3b"), name=name, family="photon_twin")))
+    shutil.copy(BENCH / "workloads" / "photon-1.3b.train_s2048.json",
+                copy / "workloads" / f"{name}.train_s2048.json")
+    new = json.loads(json.dumps(SPEC))
+    new["configs"].append({"name": name, "source": "https://arxiv.org/abs/2405.10853",
+                           "file": f"bench/configs/{name}.json", "reduced": [],
+                           "why": "photon-1.3b under a family of its own"})
+    new["workloads"].append({"name": f"{name}.train_s2048", "config": name,
+                             "traffic": "train_s2048", "chips": 1, "why": "a new family"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(new))
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    write = subprocess.run([sys.executable, str(copy / "tests" / "readings.py"), "--config", name],
+                           capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert write.returncode == 0, write.stderr[-4000:]
+    # the same model under another family reads what photon-1.3b reads
+    assert spec.load_json(copy / "tests" / "readings" / f"{name}.json") == readings.load(
+        "photon-1.3b")
+    tests = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+                            "-k", name, str(copy / "tests")],
+                           capture_output=True, text=True, env=env, cwd=tmp_path, timeout=900)
+    summary = tests.stdout.strip().splitlines()[-1]
+    assert tests.returncode == 0, tests.stdout[-4000:]
+    # per configuration: 5 of this file, 7 of test_bench_harness.py
+    assert int(summary.split(" passed")[0].split()[-1]) >= 12, summary
+    assert "failed" not in summary and "error" not in summary, summary
+
+    after = _files(copy)
+    assert {n: b for n, b in after.items() if n in before} == before
+    assert sorted(set(after) - set(before)) == [
+        f"configs/{name}.json", "reference/families/photon_twin.py",
+        f"tests/readings/{name}.json", f"workloads/{name}.train_s2048.json"]
 
 
 def test_a_family_with_no_module_is_refused_by_name():
