@@ -52,6 +52,16 @@ Phases, one JSON line each:
                 ``ops.flash_attention`` at the encoder layer on model-layout
                 (B, S, H, hd) tensors: exactly one device kernel under
                 torch.profiler, o contiguous and within the tolerance
+  flash_alibi   the causal ALiBi training pair through
+                ``ops.flash_attention_alibi`` at photon-1.3b's layer in the
+                s2048 and s512 cells (B = 1, S = 2048 and B = 4, S = 512; H =
+                16, hd = 128, bf16): one forward and two backward launches a
+                call; o and lse within the tolerance of the float32 plain
+                forward; dq, dk and dv against the float32 plain backward,
+                each within 1.25 times the plain bf16 core's
+                (``sdpa_chunked``) error; the same bits twice; forward and
+                backward times beside ``sdpa_chunked``'s, SDPA's with the
+                ALiBi bias as a float mask, and the bounds (operations)
   flash_decode  the flash decode kernel through its entry point ``ops.flash_decode``
                 (model-layout caches read in place; each case's shape read
                 from its config and input shape) at qwen3-1.7b's decode_32k
@@ -175,7 +185,12 @@ Phases, one JSON line each:
   examples      the port's five examples (``repro_torch.examples``) through their
                 ``main`` on the card, the kernel counts zeroed just before each
                 run and read just after: quickstart and serve_batched as the
-                reference runs them (no kernel); heterogeneous_federation
+                reference runs them (no kernel but, in quickstart, the ALiBi
+                training pair); every run that trains photon in bf16 launches
+                the pair, held to one forward a layer per training and
+                evaluation batch and two backward kernels a layer per
+                training batch, and left out of the counts below;
+                heterogeneous_federation
                 --fused-server --uplink topk --rounds 2 (server_apply and
                 topk_mask_ef once per round, nothing else) and --aggregation
                 async --uplink int8 --rounds 2 --fused-server (launches held to
@@ -242,7 +257,10 @@ Phases, one JSON line each:
                 (``examples_cases``, bitwise); ``server_apply``, ``int8_quant``
                 and ``int8_dequant`` add the mesh phase's launches per run by
                 uplink (``mesh_launches``) and their case at its shape
-                (``mesh_case``)
+                (``mesh_case``); ``flash_attention_alibi_fwd`` and ``_bwd``
+                give pretrain_e2e's launches, the examples'
+                (``examples_launches``), the held errors (``err``) and
+                both layer cases (``cases``)
 
 No model path launches flash_decode or rmsnorm (none does in the JAX package
 either), and no decoder layer launches flash_attention (its window is a 0-d
@@ -383,6 +401,12 @@ EXAMPLE_HETERO = {
     "async": ["--aggregation", "async", "--uplink", "int8", "--rounds", "2", "--fused-server"],
 }
 EXAMPLE_SYNC_KERNELS = ("server_apply", "topk_mask_ef")
+#: the causal ALiBi training pair, which a photon model with hd 64 or 128
+#: (reduced photon-75m, photon-125m) launches when it trains in bf16 on the card
+ALIBI_PAIR = ("flash_attention_alibi_fwd", "flash_attention_alibi_bwd")
+#: the evaluation batches of quickstart's and heterogeneous_federation's
+#: ``evaluate_perplexity`` after each round or update
+EXAMPLE_EVAL_BATCHES = 2
 EXAMPLE_E2E_ARGS = ["--full", "--fused-server"]
 E2E_PROFILE_STEPS = 8  # one client's local steps profiled at pretrain_e2e's (B, S)
 SOCKET_DEMOS = ("round", "kill-resume", "chaos", "corrupt")
@@ -486,6 +510,17 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def without_alibi(launches: dict, layers: int, steps: int, evals: int) -> dict:
+    """``launches`` less the ALiBi training pair's, once those are held to
+    what a run of a photon model with ``layers`` attention layers makes in
+    bf16 on the card: one forward a layer in each of ``steps`` training
+    micro-batches and ``evals`` evaluation batches, the backward's two
+    kernels a layer in each training micro-batch."""
+    want = {ALIBI_PAIR[0]: layers * (steps + evals), ALIBI_PAIR[1]: 2 * layers * steps}
+    assert {n: launches.get(n, 0) for n in ALIBI_PAIR} == want, (launches, want)
+    return {n: c for n, c in launches.items() if n not in ALIBI_PAIR}
 
 
 def zero_launches() -> None:
@@ -1841,6 +1876,161 @@ def phase_flash_attention() -> dict:
     return encoder
 
 
+#: the causal ALiBi training pair: (B, S, H, hd) of photon-1.3b's micro-batch
+#: in the s2048 and s512 cells
+FLASH_ALIBI_CASES = [(1, 2048, 16, 128), (4, 512, 16, 128)]
+
+
+def _alibi_bias(S, slopes, dtype):
+    """ALiBi and the causal mask as one float mask (1, H, S, S) for
+    ``F.scaled_dot_product_attention``: −slope·(i − j) where j ≤ i, −inf
+    above the diagonal."""
+    import torch
+
+    pos = torch.arange(S, device=slopes.device)
+    dist = (pos[:, None] - pos[None, :]).float()
+    bias = -slopes[:, None, None] * dist
+    return bias.masked_fill(dist < 0, float("-inf"))[None].to(dtype)
+
+
+def phase_flash_alibi() -> dict:
+    """The causal ALiBi training kernels at photon-1.3b's layer, through
+    ``ops.flash_attention_alibi`` on model-layout tensors: one forward and two
+    backward launches a call, the same bits twice. Forward: o and lse within
+    the held tolerance of the plain version on the same inputs in float32
+    (``flash_attention_alibi_plain``), o + o_lo within 2⁻¹⁴·|o|. Backward: the
+    kernels' dq, dk and dv against the plain backward in float32 on the same
+    inputs and the kernel's o, o_lo and lse (``flash_attention_alibi_bwd_plain``),
+    each within 1.25 times the error that the plain bf16 core
+    (``sdpa_chunked``) shows against that oracle, plus 1e-5 of its largest
+    value. Times (CUDA events, back to back, which reads the host where it
+    enqueues slower than the card runs): each kernel wrapper, the plain core's
+    forward and backward alone, and ``F.scaled_dot_product_attention`` with
+    the ALiBi bias as a float mask (the same function in one library call)
+    forward and backward alone; each wrapper's device time under
+    ``torch.profiler`` beside its host enqueue time (``device_and_host``).
+    Bound: operations on the bf16 tensor cores, 2 products forward and 5
+    backward of 2·hd flops per seen (query, key) pair and head."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK, ops
+    from repro_torch.models.attention import sdpa_chunked
+    from repro_torch.models.common import alibi_slopes_on
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for B, S, H, hd in FLASH_ALIBI_CASES:
+        q, k, v, do = (torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
+                       for _ in range(4))
+        slopes = alibi_slopes_on(H, torch.device("cuda", torch.cuda.current_device()))
+        xs = (q, k, v)
+        for x in xs:
+            x.requires_grad_(True)
+        torch.cuda.synchronize()
+        zero_launches()
+        y = ops.flash_attention_alibi(q, k, v, slopes)
+        y.backward(do)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        assert launches == {n: {"flash_attention_alibi_fwd": 1,
+                                "flash_attention_alibi_bwd": 2}.get(n, 0) for n in launches}
+        t = lambda x: x.detach().transpose(1, 2)  # noqa: E731
+        qf, kf, vf, dof = (t(x).float() for x in (q, k, v, do))
+        o, o_lo, lse = FK.flash_attention_alibi_fwd(t(q), t(k), t(v), slopes)
+        o0, _, lse0 = FK.flash_attention_alibi_plain(qf, kf, vf, slopes)
+        hi_lo = (o.float() + o_lo.float() - o0).abs() / (2.0 ** -14 * o0.abs()
+                                                         + 1e-5 * o0.abs().max())
+        fwd_units = {"o": ulp_units(o, o0), "lse": ulp_units(lse[..., :S], lse0[..., :S]),
+                     "o_plus_o_lo": float(hi_lo.max())}
+        del lse0, hi_lo
+
+        def bwd():
+            return FK.flash_attention_alibi_bwd(t(q), t(k), t(v), o, o_lo, lse, t(do), slopes)
+
+        grads = bwd()
+        want = FK.flash_attention_alibi_bwd_plain(qf, kf, vf, o, o_lo, lse, dof, slopes)
+        pos = torch.arange(S, device="cuda")
+
+        def plain():
+            return sdpa_chunked(q, k, v, q_pos=pos, k_pos=pos, causal=True, window=None,
+                                k_len=None, slopes=slopes)
+
+        y_plain = plain()
+        chunked = torch.autograd.grad(y_plain, xs, do, retain_graph=True)
+        bwd_err = {}
+        for name, g, gc_, g0 in zip("qkv", grads, chunked, want):
+            err = float((g.float() - g0).abs().max())
+            err_plain = float((t(gc_).float() - g0).abs().max())
+            limit = 1.25 * err_plain + 1e-5 * float(g0.abs().max())
+            bwd_err[f"d{name}"] = {"max_abs_err": err, "plain_core_max_abs_err": err_plain,
+                                   "limit": limit, "finite": bool(torch.isfinite(g).all())}
+        again = FK.flash_attention_alibi_fwd(t(q), t(k), t(v), slopes)
+        same = (torch.equal(t(y), o) and all(torch.equal(a, b) for a, b in zip((o, o_lo, lse),
+                                                                            again))
+                and all(torch.equal(a, b) for a, b in zip(grads, bwd())))
+        del qf, kf, vf, dof, want, grads, chunked, again
+        pairs = B * H * S * (S + 1) // 2
+        fwd_flops, bwd_flops = 4 * pairs * hd, 10 * pairs * hd
+
+        def plain_bwd():
+            torch.autograd.grad(y_plain, xs, do, retain_graph=True)
+
+        def fwd():
+            return FK.flash_attention_alibi_fwd(t(q), t(k), t(v), slopes)
+
+        with torch.no_grad():
+            fwd_ms = time_ms(fwd, reps=50, warmup=3)
+            fwd_dh = device_and_host(fwd)
+            plain_fwd_ms = time_ms(plain, reps=10)
+        bwd_ms = time_ms(bwd, reps=50, warmup=3)
+        bwd_dh = device_and_host(bwd)
+        plain_bwd_ms = time_ms(plain_bwd, reps=10)
+        del y_plain
+        qh, kh, vh = (t(x).contiguous().requires_grad_(True) for x in xs)
+        bias = _alibi_bias(S, slopes, q.dtype)
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+        try:
+            with torch.no_grad():
+                library_fwd_ms = time_ms(library, reps=20, warmup=3)
+            y_lib = library()
+            library_units = ulp_units(y_lib.detach(), o0)
+            library_bwd_ms = time_ms(
+                lambda: torch.autograd.grad(y_lib, (qh, kh, vh), t(do), retain_graph=True),
+                reps=20, warmup=3)
+            library_note = None
+            del y_lib
+        except RuntimeError as e:  # no SDPA backend for the mask, or out of memory
+            library_fwd_ms = library_bwd_ms = library_units = None
+            library_note = str(e).splitlines()[0][:200]
+        del qh, kh, vh, bias, o0
+        r = {"B": B, "S": S, "H": H, "hd": hd, "launches": launches,
+             "fwd_err_in_tolerance_units": fwd_units, "bwd_err": bwd_err,
+             "same_bits_twice": same,
+             "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+             "fwd_device_ms": fwd_dh["device_ms"], "fwd_host_ms": fwd_dh["host_enqueue_ms"],
+             "bwd_device_ms": bwd_dh["device_ms"], "bwd_host_ms": bwd_dh["host_enqueue_ms"],
+             "bwd_device_kernels_ms": bwd_dh["device_kernels_ms"],
+             "fwd_bound_ms": fwd_flops / BF16_TC_OPS_PER_S * 1e3,
+             "bwd_bound_ms": bwd_flops / BF16_TC_OPS_PER_S * 1e3,
+             "fwd_bwd_ms": time_ms(lambda: ops.flash_attention_alibi(q, k, v, slopes).backward(do),
+                                   reps=20, warmup=3),
+             "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
+             "library_fwd_ms": library_fwd_ms, "library_bwd_ms": library_bwd_ms,
+             "library_note": library_note, "library_err_in_tolerance_units": library_units,
+             "fwd_TFLOPs": fwd_flops / (fwd_dh["device_ms"] * 1e-3) / 1e12,
+             "bwd_TFLOPs": bwd_flops / (bwd_dh["device_ms"] * 1e-3) / 1e12}
+        emit("flash_alibi", **r)
+        assert max(fwd_units.values()) <= 1.0 and same, r
+        assert all(e["finite"] and e["max_abs_err"] <= e["limit"] for e in bwd_err.values()), r
+        out[(B, S, H, hd)] = r
+        del q, k, v, do, y, o, o_lo, lse
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Flash decode and RMSNorm, through their entry points
 # ---------------------------------------------------------------------------
@@ -2604,11 +2794,13 @@ def _examples_heterogeneous() -> dict:
     then every fedcore launch of the two runs held to its plain version at
     the shapes (and, for the codecs, on the inputs) that the runs gave it."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.core.aggregator import ASYNC_KERNEL_COUNTERS
     from repro_torch.examples import heterogeneous_federation
     from repro_torch.tree import tree_leaves
 
     r = {}
+    layers = get_config("photon-75m").reduced().n_layers  # the example's model
     inputs = _KernelInputs()
     with inputs:
         agg, rows, launches, seconds = _example(heterogeneous_federation,
@@ -2616,8 +2808,11 @@ def _examples_heterogeneous() -> dict:
     rounds = int(EXAMPLE_HETERO["sync"][EXAMPLE_HETERO["sync"].index("--rounds") + 1])
     emit("examples", example="heterogeneous_federation sync", rows=rows, launches=launches,
          seconds=seconds)
-    want = {n: rounds if n in EXAMPLE_SYNC_KERNELS else 0 for n in launches}
-    assert launches == want, (launches, want)
+    H = heterogeneous_federation
+    rest = without_alibi(launches, layers, rounds * H.CLIENTS * H.TAU,
+                         rounds * EXAMPLE_EVAL_BATCHES)
+    want = {n: rounds if n in EXAMPLE_SYNC_KERNELS else 0 for n in rest}
+    assert rest == want, (launches, want)
     assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(agg.state["params"]))
     r["heterogeneous_sync"] = {"launches": launches, "seconds": seconds}
 
@@ -2629,8 +2824,10 @@ def _examples_heterogeneous() -> dict:
     emit("examples", example="heterogeneous_federation async", rows=rows, launches=launches,
          seconds=seconds, **counts)
     counters = ASYNC_KERNEL_COUNTERS["int8"]
-    want = {n: counts[counters[n]] if n in counters else 0 for n in launches}
-    assert launches == want and counts["n_flushes"] == rounds, (launches, want, counts)
+    rest = without_alibi(launches, layers, counts["n_client_phases"] * H.TAU,
+                         counts["n_flushes"] * EXAMPLE_EVAL_BATCHES)
+    want = {n: counts[counters[n]] if n in counters else 0 for n in rest}
+    assert rest == want and counts["n_flushes"] == rounds, (launches, want, counts)
     assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(drv.state["params"]))
     r["heterogeneous_async"] = {"launches": launches, "seconds": seconds, **counts}
     del agg, drv
@@ -2648,7 +2845,9 @@ def _examples_heterogeneous() -> dict:
 
 def phase_examples() -> dict:
     """The port's five examples through their ``main`` on the card (see the
-    module docstring): quickstart and serve_batched launch no kernel;
+    module docstring): quickstart launches no kernel but the ALiBi training
+    pair, serve_batched none; every example that trains photon in bf16
+    launches the pair, held to its layers × micro-batches (``without_alibi``);
     heterogeneous_federation's sync run launches ``server_apply`` and
     ``topk_mask_ef`` once per round, its async run each fedcore kernel as
     often as the driver counts it; pretrain_e2e --full launches
@@ -2657,15 +2856,21 @@ def phase_examples() -> dict:
     import tempfile
 
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.examples import pretrain_e2e, quickstart, serve_batched
     from repro_torch.launch import train as T
     from repro_torch.tree import tree_leaves
 
     r = {}
+    Q = quickstart  # reduced photon-75m; serve_batched serves and trains nothing
+    pair = {"quickstart": (get_config("photon-75m").reduced().n_layers,
+                           Q.ROUNDS * Q.CLIENTS * Q.TAU, Q.ROUNDS * EXAMPLE_EVAL_BATCHES),
+            "serve_batched": (0, 0, 0)}
     for name, mod in (("quickstart", quickstart), ("serve_batched", serve_batched)):
         _, rows, launches, seconds = _example(mod, [])
         emit("examples", example=name, rows=rows, launches=launches, seconds=seconds)
-        assert all(n == 0 for n in launches.values()), (name, launches)
+        assert all(n == 0 for n in without_alibi(launches, *pair[name]).values()), (
+            name, launches)
         assert len(rows) == {"quickstart": 6, "serve_batched": 3}[name], rows
         r[name] = {"launches": launches, "seconds": seconds}
 
@@ -2701,8 +2906,11 @@ def phase_examples() -> dict:
     assert len(hist) == args.rounds and rows[-1].startswith("final: "), rows[-1:]
     assert all(math.isfinite(row["train_loss"]) and math.isfinite(row["val_ppl"])
                for row in hist), hist
-    want = {n: args.rounds if n == "server_apply" else 0 for n in launches}
-    assert launches == want, (launches, want)
+    rest = without_alibi(launches, out["model"].cfg.n_layers,
+                         args.rounds * args.clients * args.local_steps,
+                         args.rounds * args.eval_batches)
+    want = {n: args.rounds if n == "server_apply" else 0 for n in rest}
+    assert rest == want, (launches, want)
     assert widths.calls == [args.clients] * args.rounds, widths.calls
     e2e["client_steps"] = _client_steps_profile(out["model"], out["state"]["params"], args)
     emit("examples", example="pretrain_e2e --full", client_steps=e2e["client_steps"])
@@ -3073,6 +3281,7 @@ def main() -> int:
     codecs = timed(phase_codecs)
     ssd = timed(phase_ssd_scan)
     flash = timed(phase_flash_attention)
+    alibi = timed(phase_flash_alibi)
     decode = timed(phase_flash_decode)
     rms = timed(phase_rmsnorm)
     timed(phase_check)
@@ -3201,6 +3410,32 @@ def main() -> int:
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
         "library_note": "F.scaled_dot_product_attention at the encoder layer's shape",
     })
+    for name, key in (("flash_attention_alibi_fwd", "fwd"), ("flash_attention_alibi_bwd", "bwd")):
+        head = alibi[FLASH_ALIBI_CASES[0]]  # s2048's layer
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/models/attention.py:104 (sdpa_chunked: causal ALiBi training)",
+            # photon-125m's training in pretrain_e2e --full; a call launches
+            # the forward once and the backward's two kernels
+            "launches": examples["pretrain_e2e"]["launches"][name],
+            "examples_launches": {run: examples[run]["launches"][name] for run in (
+                "quickstart", "heterogeneous_sync", "heterogeneous_async", "pretrain_e2e")},
+            "err": head[f"{key}_err_in_tolerance_units" if key == "fwd" else "bwd_err"],
+            "ms": head[f"{key}_ms"], "device_ms": head[f"{key}_device_ms"],
+            "host_enqueue_ms": head[f"{key}_host_ms"], "plain_ms": head[f"plain_{key}_ms"],
+            "bound_ms": head[f"{key}_bound_ms"], "bound_by": "operations",
+            "library_ms": head[f"library_{key}_ms"],
+            "library_note": "F.scaled_dot_product_attention, the ALiBi bias and causal mask as "
+                            "one bf16 float mask" + (", backward alone" if key == "bwd" else "")
+                            + (f"; {head['library_note']}" if head["library_note"] else ""),
+            "case": FLASH_ALIBI_CASES[0],
+            "cases": [{k: r[k] for k in ("B", "S", "H", "hd", f"{key}_ms", f"{key}_device_ms",
+                                         f"{key}_bound_ms", f"plain_{key}_ms",
+                                         f"library_{key}_ms")}
+                      for r in alibi.values()],
+        })
+        if key == "fwd":
+            kernels[-1]["library_err_in_tolerance_units"] = head["library_err_in_tolerance_units"]
     for name, line, full, source, note in (
             ("flash_decode", 75, decode, "flash_decode.cu",
              "F.scaled_dot_product_attention, boolean mask, enable_gqa=True"),

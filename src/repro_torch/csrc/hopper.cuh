@@ -218,10 +218,20 @@ inline int make_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void* b
   if (!encode) return kErrNoEncoder;
   const cuuint32_t box[4] = {box0, box1, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const auto encode_map = [&] {
+    return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode_map();
+  // A thread that has made no runtime call yet has no current context: an
+  // autograd worker whose first work is a backward kernel, its outputs all
+  // from the allocator's cache. cudaSetDevice binds the device's primary
+  // context to the thread; then encode again.
+  int dev = 0;
+  if (r == CUDA_ERROR_INVALID_CONTEXT && cudaGetDevice(&dev) == cudaSuccess &&
+      cudaSetDevice(dev) == cudaSuccess)
+    r = encode_map();
   return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
 }
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import CSRC, build
+from repro_torch.kernels.flash_attention.ref import alibi_scores, attention_alibi_ref
 
 SOURCE = CSRC / "flash_attention.cu"
 NEG_INF = -1e30
@@ -48,6 +49,11 @@ def _library():
     lib.flash_attention_fwd.argtypes = ([P] * 4 + [I] * 6 + [L] * 12 + [I] * 4
                                         + [ctypes.c_float, I, P])
     lib.flash_attention_fwd.restype = I
+    S = ctypes.POINTER(ctypes.c_int64)  # a host array of (b, h, s) strides
+    lib.flash_attention_alibi_fwd.argtypes = [P] * 7 + [I] * 5 + [S, ctypes.c_float, P]
+    lib.flash_attention_alibi_fwd.restype = I
+    lib.flash_attention_alibi_bwd.argtypes = [P] * 12 + [I] * 5 + [S, ctypes.c_float, P]
+    lib.flash_attention_alibi_bwd.restype = I
     return lib
 
 
@@ -162,5 +168,166 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int]
     return o.reshape(B, Hq, Sq, hd).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Causal ALiBi self-attention for training: forward and backward
+# ---------------------------------------------------------------------------
+
+
+def lse_len(s: int) -> int:
+    """Rows of the log-sum-exp buffer: S rounded up to the kernels' 64-row tiles."""
+    return -(-s // 64) * 64
+
+
+def _check_alibi(q, k, v, slopes) -> None:
+    """Raise unless q, k, v and slopes are a causal ALiBi self-attention call
+    the kernels take (CPU tensors may be float32 too)."""
+    _check(q, k, v, None, 0)
+    B, Hq, S, _ = q.shape
+    if k.shape[2] != S:
+        raise ValueError(f"flash_attention_alibi: self-attention needs Sk == Sq, got "
+                         f"{k.shape[2]} and {S}")
+    if q.device.type == "cuda" and q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_alibi: the kernels take bfloat16, got {q.dtype}")
+    if (slopes.dtype != torch.float32 or tuple(slopes.shape) != (Hq,)
+            or slopes.device != q.device or not slopes.is_contiguous()):
+        raise ValueError(f"flash_attention_alibi: slopes must be contiguous float32 ({Hq},) on "
+                         f"{q.device}, got {slopes.dtype} {tuple(slopes.shape)} on {slopes.device}")
+    if max(B, lse_len(S) // 64) > 65535:
+        raise ValueError(f"flash_attention_alibi: the grid takes B and S / 64 up to 65535, "
+                         f"got {B}, {S}")
+
+
+def _stride_array(*tensors):
+    """The (b, h, s) strides of each tensor, flat, as a host int64 array."""
+    flat = [x for t in tensors for x in _strides(t)]
+    return (ctypes.c_int64 * len(flat))(*flat)
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: error {err} (a CUDA error; 1000 + n: "
+                           f"cuTensorMapEncodeTiled refused a TMA tensor map)")
+
+
+def flash_attention_alibi_fwd(
+    q: torch.Tensor,  # (B, Hq, S, hd) bf16 (f32 too on the CPU)
+    k: torch.Tensor,  # (B, Hkv, S, hd), q's dtype
+    v: torch.Tensor,  # (B, Hkv, S, hd), q's dtype
+    slopes: torch.Tensor,  # (Hq,) float32 on q's device
+):
+    """Causal self-attention with ALiBi: ``s[i][j] = scale * q[i].k[j] -
+    slope[h] * (i - j)`` for j <= i. Returns ``(o, o_lo, lse)``: o (B, Hq, S,
+    hd) in q's dtype, on the card a view of (B, S, Hq, hd) memory; o_lo, o's
+    rounding residual (the f32 result less o, in o's dtype and layout), which
+    the backward reads to form D = rowsum(dO * O) to about 16 bits; and each
+    row's log-sum-exp (natural log, f32) in a (B, Hq, lse_len(S)) buffer whose
+    rows past S are padding. One launch (``.launches``) on the card; the plain
+    version on the CPU."""
+    _check_alibi(q, k, v, slopes)
+    if q.device.type == "cpu":
+        return flash_attention_alibi_plain(q, k, v, slopes)
+    B, Hq, S, hd = q.shape
+    o, o_lo = (torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+               for _ in range(2))
+    lse = torch.empty((B, Hq, lse_len(S)), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _library().flash_attention_alibi_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), o_lo.data_ptr(),
+            lse.data_ptr(), slopes.data_ptr(), B, Hq, k.shape[1], S, hd,
+            _stride_array(q, k, v, o), sm_scale(hd),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on(err, "flash_attention_alibi_fwd")
+    flash_attention_alibi_fwd.launches += 1
+    return o, o_lo, lse
+
+
+#: launches of the forward kernel in this process (plain-version calls not counted)
+flash_attention_alibi_fwd.launches = 0
+
+
+def flash_attention_alibi_bwd(q, k, v, o, o_lo, lse, do, slopes):
+    """The gradients of :func:`flash_attention_alibi_fwd`: ``(dq, dk, dv)``
+    in q's dtype, each in model-layout memory (B, S, H, hd) seen as
+    (B, H, S, hd), from the forward's inputs, its o, o_lo (o's strides) and
+    lse, and dO (o's shape; any strides whose hd axis is contiguous and rows
+    16-byte aligned). Two launches on the card (D and dq, then dk and dv; ``.launches`` counts
+    both); the plain version on the CPU."""
+    _check_alibi(q, k, v, slopes)
+    for name, t in (("o", o), ("o_lo", o_lo), ("do", do)):
+        if t.dtype != q.dtype or tuple(t.shape) != tuple(q.shape) or t.device != q.device:
+            raise ValueError(f"flash_attention_alibi_bwd: {name} must be {q.dtype} "
+                             f"{tuple(q.shape)} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    B, Hq, S, hd = q.shape
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, Hq, lse_len(S)) \
+            or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_alibi_bwd: lse must be the forward's contiguous "
+                         f"float32 {(B, Hq, lse_len(S))}, got {lse.dtype} {tuple(lse.shape)}")
+    _check(o, k, v, None, 0)
+    _check(do, k, v, None, 0)
+    if o_lo.stride() != o.stride():
+        raise ValueError(f"flash_attention_alibi_bwd: o_lo must have o's strides {o.stride()}, "
+                         f"got {o_lo.stride()}")
+    if q.device.type == "cpu":
+        return flash_attention_alibi_bwd_plain(q, k, v, o, o_lo, lse, do, slopes)
+    Hkv = k.shape[1]
+    dq = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk = torch.empty((B, S, Hkv, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty_like(dk)
+    dbuf = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        err = _library().flash_attention_alibi_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), o_lo.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dbuf.data_ptr(), slopes.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, S, hd,
+            _stride_array(q, k, v, o, do, dq, dk, dv),
+            sm_scale(hd), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on(err, "flash_attention_alibi_bwd")
+    flash_attention_alibi_bwd.launches += 2
+    return dq, dk, dv
+
+
+#: launches of the two backward kernels in this process (plain-version calls not counted)
+flash_attention_alibi_bwd.launches = 0
+
+
+def flash_attention_alibi_plain(q, k, v, slopes):
+    """The forward's function in plain torch, f32 throughout: ``(o in q's
+    dtype, its residual o_lo, lse padded to lse_len(S) rows with zeros)``."""
+    S = q.shape[2]
+    with torch.no_grad():
+        o32, lse = attention_alibi_ref(q, k, v, slopes)
+    o = o32.to(q.dtype)
+    return o, (o32 - o.float()).to(q.dtype), torch.nn.functional.pad(lse, (0, lse_len(S) - S))
+
+
+def flash_attention_alibi_bwd_plain(q, k, v, o, o_lo, lse, do, slopes):
+    """The backward kernels' algorithm in plain torch, f32 throughout: P
+    recomputed from the scores and the forward's lse, D = rowsum(dO * (o +
+    o_lo)), dS = P * (dP - D); dk and dv summed over the query heads of each
+    kv head."""
+    B, Hq, S, hd = q.shape
+    Hkv = k.shape[1]
+    grp = Hq // Hkv
+    scale = sm_scale(hd)
+    with torch.no_grad():
+        s, seen = alibi_scores(q, k, slopes)
+        p = torch.where(seen, torch.exp(s - lse[..., :S].reshape(B, Hkv, grp, S, 1)),
+                        torch.zeros_like(s))
+        dof = do.float().reshape(B, Hkv, grp, S, hd)
+        o32 = (o.float() + o_lo.float()).reshape(B, Hkv, grp, S, hd)
+        d = (dof * o32).sum(-1, keepdim=True)
+        dp = torch.einsum("bhgqd,bhsd->bhgqs", dof, v.float())
+        ds = p * (dp - d)
+        dq = torch.einsum("bhgqs,bhsd->bhgqd", ds, k.float()) * scale
+        dk = torch.einsum("bhgqs,bhgqd->bhsd", ds, q.float().reshape(B, Hkv, grp, S, hd)) * scale
+        dv = torch.einsum("bhgqs,bhgqd->bhsd", p, dof)
+    return dq.reshape(B, Hq, S, hd).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 #: every kernel wrapper of this module, by name (each counts its launches)
-KERNELS = {"flash_attention": flash_attention_fwd}
+KERNELS = {"flash_attention": flash_attention_fwd,
+           "flash_attention_alibi_fwd": flash_attention_alibi_fwd,
+           "flash_attention_alibi_bwd": flash_attention_alibi_bwd}

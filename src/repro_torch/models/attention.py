@@ -8,6 +8,12 @@ ALiBi, outside decode, with a window that is None or a Python int), the port
 sends it to the CUDA flash kernel through ``kernels/flash_attention/ops``.
 Through the model only whisper's encoder gets there: a decoder layer's window
 is an entry of the window array, a 0-d tensor.
+
+The port's own route, which the reference lacks: a causal ALiBi
+self-attention call in bf16 on the card with no cache and no window runs on
+the flash kernel pair for training, forward and backward
+(:func:`flash_train_route`). Every call counts its route on the traced
+round's ``attn_kernel`` or ``attn_plain`` counter (``obs/phases``).
 """
 from __future__ import annotations
 
@@ -18,9 +24,22 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.common import ParamDesc, alibi_slopes, apply_rope, rmsnorm
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS as FLASH_HEAD_DIMS
+from repro_torch.models.common import (  # noqa: F401  alibi_slopes: the reference's name
+    ParamDesc,
+    alibi_slopes,
+    alibi_slopes_on,
+    apply_rope,
+    rmsnorm,
+)
+from repro_torch.obs.phases import counter
 
 NEG_INF = -1e30
+WINDOW_SENTINEL = 1 << 30  # "no window": mask (qpos - kpos < sentinel) is always true
+
+#: the traced round's counts of attention calls by route
+count_kernel_call = counter("attn_kernel")
+count_plain_call = counter("attn_plain")
 
 
 def attn_desc(cfg, cross: bool = False) -> dict:
@@ -138,6 +157,28 @@ def sdpa_chunked(
     return torch.cat(outs, dim=1)
 
 
+def _no_window(window) -> bool:
+    """Whether ``window`` is None or the full-attention sentinel. A layer's
+    entry of the window array is a 0-d CPU tensor, read on the host; a window
+    on another device is not read (that would wait for the device)."""
+    if window is None:
+        return True
+    if isinstance(window, torch.Tensor):
+        return window.device.type == "cpu" and window.ndim == 0 and int(window) == WINDOW_SENTINEL
+    return window == WINDOW_SENTINEL
+
+
+def flash_train_route(cfg, q, *, causal: bool, window, cache, kv_source, k_len) -> bool:
+    """Whether this attention call runs on the causal ALiBi flash kernel pair:
+    q (B, S, Hq, hd) bf16 on CUDA, ALiBi, causal self-attention with no cache,
+    no memory and no KV length, no window, hd 64 or 128. Every other call
+    takes the plain core."""
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
+            and cfg.pos_embedding == "alibi" and causal and cache is None
+            and kv_source is None and k_len is None and _no_window(window)
+            and q.shape[-1] in FLASH_HEAD_DIMS)
+
+
 def attention(
     cfg,
     p: dict,
@@ -186,17 +227,24 @@ def attention(
             new_cache = {"k": k, "v": v}
 
     Sk = k.shape[1]
+    k_len = None
+    if kv_source is None and cache is not None and cache_index is not None and Sk > S:
+        k_len = cache_index + S
+    if flash_train_route(cfg, q, causal=causal, window=window, cache=cache,
+                         kv_source=kv_source, k_len=k_len):
+        count_kernel_call()
+        out = fa_ops.flash_attention_alibi(q, k, v, alibi_slopes_on(cfg.n_heads, x.device))
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), new_cache
+    count_plain_call()
+
     k_positions = torch.arange(Sk, device=x.device)
     slopes = None
     if kv_source is not None:
-        eff_causal, eff_window, k_len = False, None, None
+        eff_causal, eff_window = False, None
     else:
         eff_causal, eff_window = causal, window
-        k_len = None
-        if cache is not None and cache_index is not None and Sk > S:
-            k_len = cache_index + S
         if cfg.pos_embedding == "alibi":
-            slopes = alibi_slopes(cfg.n_heads, x.device)
+            slopes = alibi_slopes_on(cfg.n_heads, x.device)
 
     if (use_pallas and slopes is None and kv_source is None and k_len is None
             and (window is None or isinstance(window, int))):

@@ -11,6 +11,7 @@ axis of every dim, which ``sharding.specs`` resolves against a mesh.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import threading
 import zlib
@@ -215,3 +216,11 @@ def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
         extra = pow2_slopes(2 * closest)[0::2][: n_heads - closest]
         s = s + extra
     return torch.tensor(np.asarray(s, np.float32), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def alibi_slopes_on(n_heads: int, device: torch.device) -> torch.Tensor:
+    """``alibi_slopes(n_heads, device)``, built once per (n_heads, device):
+    the copy to the card, a host sync, is paid at the first call only. The
+    tensor is shared; its callers only read it."""
+    return alibi_slopes(n_heads, device)

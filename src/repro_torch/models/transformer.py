@@ -33,7 +33,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDesc, apply_norm, norm_desc, stack_descs
 from repro_torch.tree import tree_flatten, tree_map, tree_stack, tree_unflatten
 
-WINDOW_SENTINEL = 1 << 30  # "no window": mask (qpos - kpos < sentinel) is always true
+WINDOW_SENTINEL = attn_mod.WINDOW_SENTINEL
 
 
 @dataclass(frozen=True)

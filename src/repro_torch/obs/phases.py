@@ -32,6 +32,11 @@ step's id plus a suffix)::
 ``encode``, ``decode``, ``scatter`` and ``screen`` open only where that work
 runs. Every device operation of the round runs inside exactly one leaf.
 
+Besides the spans, the round counts events: code that has events to count
+registers a name with :func:`counter` and calls the function it returns at
+each one. The round's E event carries every registered name as
+``<name>_n``, 0 where none happened.
+
 Each span is a Tracer span (B at its start; its E event is stamped at its end
 and emitted when the round closes, carrying ``syncs`` and, on CUDA,
 ``dev_s``) and a ``torch.profiler.record_function("fed::<name>")`` range, so
@@ -47,9 +52,10 @@ from __future__ import annotations
 import time
 import warnings
 from collections import defaultdict
+from collections import Counter
 from contextlib import contextmanager, nullcontext
 from contextvars import ContextVar
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -61,6 +67,10 @@ _ANCHORS = ("round", "client", "step")
 #: id suffixes that are not the span's name
 _SUFFIX = {"client": "c", "step": "s", "fwd_bwd": "fb"}
 
+#: the names registered with :func:`counter`; each appears in every round's
+#: rollup as ``<name>_n``
+COUNTERS: List[str] = []
+
 _NULL = nullcontext()
 _ROUND: ContextVar[Optional["RoundPhases"]] = ContextVar("repro_torch_round_phases",
                                                          default=None)
@@ -71,6 +81,21 @@ def phase(name: str, index: Optional[int] = None):
     ``index`` numbers a ``client`` or a ``step``."""
     rec = _ROUND.get()
     return _NULL if rec is None else rec.span(name, index)
+
+
+def counter(name: str) -> Callable[[], None]:
+    """Register ``name`` in :data:`COUNTERS` and return the function that
+    counts one ``name`` event on the traced round open in this thread
+    (nothing outside one)."""
+    if name not in COUNTERS:
+        COUNTERS.append(name)
+
+    def count() -> None:
+        rec = _ROUND.get()
+        if rec is not None:
+            rec.counts[name] += 1
+
+    return count
 
 
 class _Span:
@@ -94,6 +119,7 @@ class RoundPhases:
         self._root = self._open("round", round_id)
         self._stack = [self._root]
         self._closed: List[_Span] = []
+        self.counts: Counter = Counter()
 
     def _open(self, name: str, sid: str) -> _Span:
         ev0 = None
@@ -145,7 +171,8 @@ class RoundPhases:
         """Close the round's own range, read the device times, emit the phase
         spans' E events and return the round's rollup: ``<name>_s``,
         ``<name>_n`` and, on CUDA, ``<name>_dev_s`` for every phase name,
-        ``host_syncs`` (all but the readout's) and the round's ``dev_s``."""
+        ``<name>_n`` for every counter, ``host_syncs`` (all but the
+        readout's) and the round's ``dev_s``."""
         self._drain()
         self._stack = []
         self._close(self._root)
@@ -167,6 +194,7 @@ class RoundPhases:
                 syncs += sp.syncs
             self.tracer.emit(sp.end_ev)
         out = {k: int(v) if k.endswith("_n") else v for k, v in out.items()}
+        out.update({f"{name}_n": self.counts[name] for name in COUNTERS})
         out["host_syncs"] = syncs
         if self.cuda:
             out["dev_s"] = self._root.ev0.elapsed_time(self._root.ev1) / 1e3

@@ -268,3 +268,154 @@ def test_tensor_core_numerics_hold_the_tolerance(case):
     once = emulate_tensor_core_kernel(q, k, v, **kw, split=False).float().numpy()
     with pytest.raises(AssertionError):
         within(once, want, torch.bfloat16, "bf16 P emulation vs plain")
+
+
+# ---------------------------------------------------------------------------
+# The causal ALiBi training pair: its float32 oracle, its plain versions, the
+# autograd function and the route to it
+# ---------------------------------------------------------------------------
+
+from types import SimpleNamespace  # noqa: E402
+
+from repro_torch.models import attention as t_attn  # noqa: E402
+from repro_torch.models.common import alibi_slopes  # noqa: E402
+
+#: (S, Hq, Hkv, hd): photon-1.3b's layer at 2048 and 512, a ragged tail, H 16
+#: and 4, hd 128 and 64, one GQA case
+ALIBI_CASES = [
+    (2048, 16, 16, 128),
+    (512, 16, 16, 128),
+    (100, 16, 16, 128),
+    (512, 4, 4, 64),
+    (100, 4, 4, 64),
+    (100, 4, 2, 64),
+]
+ALIBI_IDS = ["s2048-h16-hd128", "s512-h16-hd128", "s100-h16-hd128", "s512-h4-hd64",
+             "s100-h4-hd64", "s100-gqa2-hd64"]
+
+
+def alibi_inputs(S, Hq, Hkv, hd, seed):
+    """q, k, v in model layout (B 1, S, H, hd), float32, needing grads; dO; slopes."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, S, h, hd)).astype(np.float32))
+               .requires_grad_(True) for h in (Hq, Hkv, Hkv))
+    dout = torch.from_numpy(rng.standard_normal((1, S, Hq, hd)).astype(np.float32))
+    return q, k, v, dout, alibi_slopes(Hq)
+
+
+def f32_close(got, want, what):
+    """float32 rounding: sums over up to S keys in other orders."""
+    want = want.detach()
+    assert_close(got.detach().numpy(), want.numpy(), atol=1e-5 * float(want.abs().max()),
+                 what=what)
+
+
+def grads(out, dout, xs):
+    return torch.autograd.grad(out, xs, dout)
+
+
+@pytest.mark.parametrize("case", ALIBI_CASES, ids=ALIBI_IDS)
+def test_alibi_oracle_matches_sdpa_chunked_forward_and_backward(case):
+    """The training kernels' float32 oracle, forward and autograd backward,
+    equals the plain core the model ran before (``sdpa_chunked`` with the
+    slopes) to float32 rounding."""
+    S, Hq, Hkv, hd = case
+    q, k, v, dout, slopes = alibi_inputs(S, Hq, Hkv, hd, seed=S + Hq + hd)
+    pos = torch.arange(S)
+    want = t_attn.sdpa_chunked(q, k, v, q_pos=pos, k_pos=pos, causal=True, window=None,
+                               k_len=None, slopes=slopes)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    o, lse = t_ref.attention_alibi_ref(t(q), t(k), t(v), slopes)
+    f32_close(t(o), want, "oracle vs sdpa_chunked: o")
+    assert lse.shape == (1, Hq, S) and bool(torch.isfinite(lse).all())
+    for name, g, g0 in zip("qkv", grads(t(o), dout, (q, k, v)), grads(want, dout, (q, k, v))):
+        f32_close(g, g0, f"oracle vs sdpa_chunked: d{name}")
+
+
+@pytest.mark.parametrize("case", ALIBI_CASES[2:], ids=ALIBI_IDS[2:])
+def test_alibi_function_on_the_cpu_matches_the_oracle(case):
+    """``flash_attention_alibi`` on CPU tensors runs the kernels' plain
+    versions both ways (the backward recomputes P from the saved lse, D =
+    rowsum(dO * O), dS = P (dP - D)) and launches nothing: its output, lse and
+    gradients equal the oracle's to float32 rounding."""
+    S, Hq, Hkv, hd = case
+    q, k, v, dout, slopes = alibi_inputs(S, Hq, Hkv, hd, seed=S * hd + Hkv)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    before = (t_kernel.flash_attention_alibi_fwd.launches,
+              t_kernel.flash_attention_alibi_bwd.launches)
+    got = t_ops.flash_attention_alibi(q, k, v, slopes)
+    o, lse = t_ref.attention_alibi_ref(t(q), t(k), t(v), slopes)
+    f32_close(got, t(o), "function vs oracle: o")
+    _, o_lo, lse_plain = t_kernel.flash_attention_alibi_plain(t(q), t(k), t(v), slopes)
+    assert not o_lo.any()  # float32 inputs: o is the float32 result itself
+    assert lse_plain.shape == (1, Hq, t_kernel.lse_len(S))
+    f32_close(lse_plain[..., :S], lse, "plain vs oracle: lse")
+    assert not lse_plain[..., S:].any()
+    for name, g, g0 in zip("qkv", grads(got, dout, (q, k, v)), grads(t(o), dout, (q, k, v))):
+        f32_close(g, g0, f"function vs oracle: d{name}")
+    assert (t_kernel.flash_attention_alibi_fwd.launches,
+            t_kernel.flash_attention_alibi_bwd.launches) == before
+
+
+def test_alibi_wrappers_refuse_what_the_kernels_do_not_take():
+    q, k, v, dout, slopes = alibi_inputs(64, 4, 2, 64, seed=0)
+    t = lambda x: x.detach().transpose(1, 2)  # noqa: E731
+    q, k, v = t(q), t(k), t(v)
+    bad = [
+        lambda: t_kernel.flash_attention_alibi_fwd(q, k[:, :, :32], v[:, :, :32], slopes),  # Sk
+        lambda: t_kernel.flash_attention_alibi_fwd(q, k, v, slopes[:2]),  # slopes' shape
+        lambda: t_kernel.flash_attention_alibi_fwd(q, k, v, slopes.double()),  # slopes' dtype
+        lambda: t_kernel.flash_attention_alibi_fwd(q[..., :32], k[..., :32], v[..., :32],
+                                                   slopes),  # hd 32
+    ]
+    o, o_lo, lse = t_kernel.flash_attention_alibi_fwd(q, k, v, slopes)
+    bad += [
+        lambda: t_kernel.flash_attention_alibi_bwd(q, k, v, o, o_lo, lse[..., :32], o, slopes),
+        lambda: t_kernel.flash_attention_alibi_bwd(q, k, v, o, o_lo, lse, o[:, :2], slopes),
+        lambda: t_kernel.flash_attention_alibi_bwd(
+            q, k, v, o, o_lo.transpose(1, 2).contiguous().transpose(1, 2), lse, o,
+            slopes),  # o_lo not in o's strides
+    ]
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
+
+
+_PHOTON = SimpleNamespace(pos_embedding="alibi")
+_SENTINEL = torch.tensor(t_attn.WINDOW_SENTINEL, dtype=torch.int32)  # a layer's 0-d window
+
+
+def _call(device="cuda", dtype=torch.bfloat16, hd=128, **kw):
+    """One attention call's observables: photon-1.3b's bf16 training call on
+    the card, with the fields of ``kw`` changed."""
+    q = SimpleNamespace(device=torch.device(device), dtype=dtype, shape=(1, 2048, 16, hd))
+    args = dict(causal=True, window=_SENTINEL, cache=None, kv_source=None, k_len=None)
+    args.update(kw)
+    return q, args
+
+
+ROUTE_CASES = {
+    "photon-train": (_PHOTON, _call(), True),
+    "window-none": (_PHOTON, _call(window=None), True),
+    "window-int-sentinel": (_PHOTON, _call(window=t_attn.WINDOW_SENTINEL), True),
+    "hd64": (_PHOTON, _call(hd=64), True),
+    "cpu": (_PHOTON, _call(device="cpu"), False),
+    "f32": (_PHOTON, _call(dtype=torch.float32), False),
+    "rope": (SimpleNamespace(pos_embedding="rope"), _call(), False),
+    "learned": (SimpleNamespace(pos_embedding="learned"), _call(), False),
+    "prefill-cache": (_PHOTON, _call(cache={}), False),
+    "decode": (_PHOTON, _call(cache={"k": None, "v": None}, k_len=2049), False),
+    "cross-attention": (_PHOTON, _call(causal=False, kv_source=object()), False),
+    "not-causal": (_PHOTON, _call(causal=False), False),
+    "real-window": (_PHOTON, _call(window=torch.tensor(512, dtype=torch.int32)), False),
+    "window-int": (_PHOTON, _call(window=512), False),
+    "window-on-a-device": (_PHOTON, _call(window=torch.empty((), dtype=torch.int32,
+                                                             device="meta")), False),
+    "hd96": (_PHOTON, _call(hd=96), False),
+}
+
+
+@pytest.mark.parametrize("cfg,call,want", ROUTE_CASES.values(), ids=ROUTE_CASES.keys())
+def test_flash_train_route_takes_only_photons_bf16_training_call_on_the_card(cfg, call, want):
+    q, args = call
+    assert t_attn.flash_train_route(cfg, q, **args) is want

@@ -16,7 +16,12 @@ socket run (worker threads on the card) is bitwise the in-process run; the
 heterogeneous_federation example's fused top-k rounds launch server_apply
 and topk_mask_ef once a round and nothing else. The SSD
 scan, flash attention and flash decode: y within one bf16 ulp of the plain
-version (f32: 1e-5·max|y|). RMSNorm: bf16 within one bf16 ulp, f32 within
+version (f32: 1e-5·max|y|). The causal ALiBi training pair: o and lse within
+that tolerance of the float32 oracle, each gradient within 1.25 times the
+error of the plain bf16 core (``sdpa_chunked``) against the same oracle, the
+same bits twice, no host sync across a photon layer, a tiny
+photon's loss and grads through the kernel within the bf16 model tolerance of
+the plain core's, and a traced round's route counters. RMSNorm: bf16 within one bf16 ulp, f32 within
 2e-6·|y|. Flash decode and RMSNorm also give the same bits on two launches,
 and raise rather than fall back when their kernel cannot be built. The
 stacked-layer backward at photon-1.3b's widths fills no stack-sized tensor
@@ -764,6 +769,247 @@ def test_cuda_flash_attention_wrapper_refuses_instead_of_falling_back():
         with pytest.raises(ValueError):
             fn()
     assert FK.flash_attention_fwd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The causal ALiBi training pair
+# ---------------------------------------------------------------------------
+
+#: (B, S, Hq, Hkv, hd): photon-1.3b's micro-batch in the s2048 and s512 cells,
+#: a ragged tail with GQA at hd 64, a ragged hd 128 case with grp 4
+ALIBI_CASES = [(1, 2048, 16, 16, 128), (4, 512, 16, 16, 128), (1, 100, 4, 2, 64),
+               (2, 333, 8, 2, 128)]
+
+
+def alibi_inputs(B, S, Hq, Hkv, hd, seed):
+    """bf16 q, k, v (needing grads) and dO in model layout, and the slopes."""
+    from repro_torch.models.common import alibi_slopes_on
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(h):
+        return torch.randn((B, S, h, hd), generator=gen, device="cuda").bfloat16()
+
+    q, k, v = (rnd(h).requires_grad_(True) for h in (Hq, Hkv, Hkv))
+    return q, k, v, rnd(Hq), alibi_slopes_on(Hq, q.device)
+
+
+def _kl(x):
+    return x.detach().transpose(1, 2)
+
+
+@pytest.mark.parametrize("case", ALIBI_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_cuda_flash_alibi_forward_matches_the_oracle(case):
+    """o and the log-sum-exp against the float32 oracle on the same bf16
+    inputs, within the flash tolerance; one launch."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import kernel as FK, ref
+
+    q, k, v, _, slopes = alibi_inputs(*case, seed=sum(case))
+    before = FK.flash_attention_alibi_fwd.launches
+    o, o_lo, lse = FK.flash_attention_alibi_fwd(_kl(q), _kl(k), _kl(v), slopes)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_alibi_fwd.launches == before + 1
+    o0, lse0 = ref.attention_alibi_ref(_kl(q), _kl(k), _kl(v), slopes)
+    S = q.shape[1]
+    assert o.dtype == torch.bfloat16 and o.transpose(1, 2).is_contiguous()
+    assert flash_error(o, o0) <= 1.0
+    assert flash_error(lse[..., :S], lse0) <= 1.0
+    # o + o_lo carries the f32 result to about 16 bits
+    err = (o.float() + o_lo.float() - o0).abs()
+    assert float((err / (2.0 ** -14 * o0.abs() + 1e-5 * o0.abs().max())).max()) <= 1.0
+
+
+def _max_err(got, want):
+    return float((got.float() - want).abs().max())
+
+
+@pytest.mark.parametrize("case", ALIBI_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_cuda_flash_alibi_gradients_are_no_worse_than_the_plain_cores(case):
+    """dq, dk and dv through the kernel pair against the float32 oracle's
+    autograd on the same bf16 inputs: each within 1.25 times the error that
+    ``sdpa_chunked`` in bf16 shows against the same oracle, plus 1e-5 of the
+    largest value. One forward and two backward launches a call."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import kernel as FK, ops, ref
+    from repro_torch.models.attention import sdpa_chunked
+
+    q, k, v, do, slopes = alibi_inputs(*case, seed=3 * sum(case))
+    xs = (q, k, v)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    o0, _ = ref.attention_alibi_ref(*(t(x.float()) for x in xs), slopes)
+    want = torch.autograd.grad(t(o0), xs, do.float())
+    before = (FK.flash_attention_alibi_fwd.launches, FK.flash_attention_alibi_bwd.launches)
+    got = torch.autograd.grad(ops.flash_attention_alibi(q, k, v, slopes), xs, do)
+    torch.cuda.synchronize()
+    assert (FK.flash_attention_alibi_fwd.launches,
+            FK.flash_attention_alibi_bwd.launches) == (before[0] + 1, before[1] + 2)
+    pos = torch.arange(q.shape[1], device="cuda")
+    plain = sdpa_chunked(q, k, v, q_pos=pos, k_pos=pos, causal=True, window=None, k_len=None,
+                         slopes=slopes)
+    chunked = torch.autograd.grad(plain, xs, do)
+    for name, g, gc, g0 in zip("qkv", got, chunked, want):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        err, err_plain = _max_err(g, g0), _max_err(gc, g0)
+        assert err <= 1.25 * err_plain + 1e-5 * float(g0.abs().max()), (name, err, err_plain)
+
+
+@pytest.mark.parametrize("case", ALIBI_CASES[1:3], ids=lambda c: "x".join(map(str, c)))
+def test_cuda_flash_alibi_gives_the_same_bits_twice(case):
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v, do, slopes = alibi_inputs(*case, seed=11)
+    args = (_kl(q), _kl(k), _kl(v))
+    (o, o_lo, lse), (o2, o_lo2, lse2) = (FK.flash_attention_alibi_fwd(*args, slopes)
+                                         for _ in range(2))
+    assert torch.equal(_bits(o), _bits(o2)) and torch.equal(_bits(o_lo), _bits(o_lo2))
+    assert torch.equal(lse, lse2)
+    first, again = (FK.flash_attention_alibi_bwd(*args, o, o_lo, lse, _kl(do), slopes)
+                    for _ in range(2))
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(first, again))
+
+
+def test_cuda_flash_alibi_runs_on_a_thread_with_no_cuda_context():
+    """The pair's forward and backward from a fresh thread that has made no
+    CUDA runtime call, every output taken from the allocator's cache (as an
+    autograd worker whose first work is the backward finds it): the same
+    bits as on the main thread."""
+    _need_cuda()
+    import threading
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v, do, slopes = alibi_inputs(1, 256, 4, 4, 128, seed=5)
+    args = (_kl(q), _kl(k), _kl(v))
+
+    def pair():
+        o, o_lo, lse = FK.flash_attention_alibi_fwd(*args, slopes)
+        return (o, o_lo, lse, *FK.flash_attention_alibi_bwd(*args, o, o_lo, lse, _kl(do), slopes))
+
+    first = pair()
+    want = [x.clone() for x in first]
+    del first  # its blocks go back to the cache, for the thread to take
+    got, errors = [], []
+
+    def run():
+        try:
+            got.extend(pair())
+        except Exception as e:  # noqa: BLE001 - re-raised on the main thread
+            errors.append(e)
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    assert not errors, errors
+    torch.cuda.synchronize()
+    assert len(got) == 6 and all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+def test_cuda_photon_layer_makes_no_host_sync():
+    """One photon-1.3b layer at 2048 (LayerNorm, attention on the kernel
+    route, GELU FFN), forward and backward, under
+    ``set_sync_debug_mode("error")`` (after one pass that puts the slopes on
+    the card)."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.common import init_params
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("photon-1.3b")
+    kind = cfg.layer_kinds()[0]
+    p = init_params(0, TR._layer_desc(cfg, kind), device="cuda")
+    for leaf in tree_leaves(p):
+        leaf.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h = torch.randn((1, 2048, cfg.d_model), generator=gen, device="cuda").bfloat16()
+    h.requires_grad_(True)
+    pos = torch.arange(h.shape[1], device="cuda")
+    window = torch.tensor(TR.WINDOW_SENTINEL, dtype=torch.int32)  # as the stack gives it
+
+    def run():
+        out, _, _ = TR._apply_layer(cfg, kind, p, h, window=window, positions=pos, cache=None,
+                                    cache_index=None, enc_out=None, decode=False,
+                                    use_pallas=False)
+        out.float().sum().backward()
+
+    run()
+    torch.cuda.synchronize()
+    before = FK.flash_attention_alibi_fwd.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_alibi_fwd.launches == before + 1
+
+
+def _tiny_photon():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("photon-75m").reduced(), compute_dtype="bfloat16")
+    return cfg, build_model(cfg)
+
+
+def test_cuda_tiny_photon_loss_and_grads_match_through_the_kernel_and_the_plain_core(
+        monkeypatch):
+    """Reduced photon-75m (hd 64, GQA 4/2) in CUDA bf16: its loss and grads
+    through the kernel pair and through ``sdpa_chunked`` (the route turned
+    off), within the bf16 tolerance of ``test_loss_and_grads_match_reference``
+    (loss 2e-2) and, over all leaves, a relative gradient distance under 5e-2."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import attention as A
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    cfg, model = _tiny_photon()
+    leaves, treedef = tree_flatten(model.init(0, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+
+    def loss_and_grads():
+        xs = [x.detach().requires_grad_(True) for x in leaves]
+        loss, _ = model.loss(tree_unflatten(treedef, xs), {"tokens": tokens})
+        return float(loss), torch.autograd.grad(loss, xs)
+
+    before = FK.flash_attention_alibi_fwd.launches
+    loss_k, g_k = loss_and_grads()
+    assert FK.flash_attention_alibi_fwd.launches == before + cfg.n_layers
+    monkeypatch.setattr(A, "flash_train_route", lambda *a, **kw: False)
+    loss_p, g_p = loss_and_grads()
+    assert FK.flash_attention_alibi_fwd.launches == before + cfg.n_layers
+    assert abs(loss_k - loss_p) <= 2e-2
+    diff = sum(float((a.float() - b.float()).square().sum()) for a, b in zip(g_k, g_p))
+    norm = sum(float(b.float().square().sum()) for b in g_p)
+    print(f"tiny photon bf16: loss {loss_k} vs {loss_p}, grad distance {(diff / norm) ** 0.5}")
+    assert (diff / norm) ** 0.5 < 5e-2
+
+
+def test_cuda_traced_round_counts_every_photon_attention_call_on_the_kernel():
+    """A traced sync round of reduced photon-75m in bf16 on the card: every
+    attention call (2 layers, C = 2, τ = 2) on the kernel, none on the plain core."""
+    _need_cuda()
+    import repro_torch.core as T
+    import repro_torch.obs as TO
+
+    cfg, model = _tiny_photon()
+    C, tau = 2, 2
+    tracer = TO.Tracer(proc="server")
+    agg = T.SyncAggregator(model.loss, T.FederatedConfig(clients_per_round=C, local_steps=tau),
+                           T.ParticipationConfig(population=2 * C, clients_per_round=C),
+                           seed=2, tracer=tracer, params=model.init(0, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (tau, C, 2, 128), device="cuda", dtype=torch.int32)
+    agg.run_round({"tokens": tokens}, agg.plan(0))
+    closed, _ = TO.span_pairs(list(tracer.ring))
+    (rnd,) = [s for s in closed if s["name"] == "round"]
+    assert rnd["attrs"]["attn_kernel_n"] == cfg.n_layers * C * tau
+    assert rnd["attrs"]["attn_plain_n"] == 0
 
 
 def test_cuda_whisper_generate_matches_the_cpu():

@@ -105,9 +105,11 @@ def test_a_traced_sync_round_has_the_phase_tree_and_its_rollup(codec):
     assert a["client_n"] == a["init_n"] == a["delta_n"] == C
     names = {n for n, _, _ in phases}
     rollup = {f"{n}_{k}" for n in names for k in ("s", "n")} | {"host_syncs"}
-    assert set(a) == rollup | {"round", "effective_k", "track", *F.TRACE_METRIC_KEYS} - {
-        "model_norm"}
+    counters = {f"{n}_n" for n in PH.COUNTERS}
+    assert set(a) == rollup | counters | {"round", "effective_k", "track",
+                                          *F.TRACE_METRIC_KEYS} - {"model_norm"}
     assert a["host_syncs"] == 0 and not any(k.endswith("dev_s") for k in a)
+    assert all(a[k] == 0 for k in counters)  # the quadratic model has no attention
     for s in closed:
         if s["name"] != "round":
             assert s["attrs"] == {"syncs": 0}, s
@@ -118,6 +120,32 @@ def test_a_traced_sync_round_has_the_phase_tree_and_its_rollup(codec):
         if s["parent"]:
             assert s["ts"] >= next(p["ts"] for p in closed if p["span"] == s["parent"])
             assert ends[s["span"]] <= ends[s["parent"]] + 1e-6
+
+
+def test_a_traced_round_counts_each_attention_call_at_its_route():
+    """Reduced photon-75m on the CPU: every attention call of the round (2
+    layers, C = 2 clients, τ = 2 steps, one micro-batch each) takes the plain
+    core, and none the kernel; a round outside a trace counts nothing."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A, build_model
+
+    cfg = dataclasses.replace(get_config("photon-75m").reduced(), compute_dtype="float32")
+    model = build_model(cfg)
+    C, tau = 2, 2
+    tracer = TO.Tracer(proc="server")
+    fed = T.FederatedConfig(clients_per_round=C, local_steps=tau)
+    pcfg = T.ParticipationConfig(population=2 * C, clients_per_round=C)
+    agg = T.SyncAggregator(model.loss, fed, pcfg, seed=2, tracer=tracer,
+                           params=model.init(0, device="cpu"))
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (tau, C, 2, 16))
+    agg.run_round({"tokens": torch.from_numpy(tokens.astype(np.int32))}, agg.plan(0))
+    closed, _ = TO.span_pairs(list(tracer.ring))
+    (rnd,) = [s for s in closed if s["name"] == "round"]
+    assert rnd["attrs"]["attn_plain_n"] == cfg.n_layers * C * tau
+    assert rnd["attrs"]["attn_kernel_n"] == 0
+    A.count_plain_call()  # no traced round is open: a no-op
 
 
 def test_every_aten_op_of_a_profiled_round_runs_in_exactly_one_leaf():
